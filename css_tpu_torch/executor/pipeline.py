@@ -1,0 +1,100 @@
+"""End-to-end 1ch continuous separation pipeline.
+
+Port of ``css_tpu/executor/pipeline.py``: separator -> stitcher ->
+beamformer per recording, configured from the reference YAML schema
+({separation, stitching, beamforming}, ``configs/infer_1ch.yaml``). The
+recording goes to ``device`` once; the separated streams come back to the
+host as numpy.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, Tuple, Union
+
+import numpy as np
+import torch
+
+from css_tpu_torch.data.wav_io import write_wav
+from css_tpu_torch.device import resolve_device
+from css_tpu_torch.executor.beamformer import Beamformer
+from css_tpu_torch.executor.separator import Separator
+from css_tpu_torch.executor.stitcher import Stitcher
+from css_tpu_torch.executor.windowing import pad_for_windows
+
+
+class CssPipeline:
+    def __init__(self, model: torch.nn.Module, config: Dict, sr: int = 16000,
+                 device: Union[str, torch.device] = "cuda"):
+        """``model`` is moved to ``device`` and put in eval mode."""
+        self.device = resolve_device(device)
+        sep = config.get("separation", {})
+        sti = config.get("stitching", {})
+        bf = config.get("beamforming", {})
+        if sep.get("sharded"):
+            raise NotImplementedError(
+                "sharded separation is not ported yet: ROADMAP.md Queue 1 "
+                "item 10")
+        if sti.get("reanchor"):
+            raise NotImplementedError(
+                "stream re-anchoring is not ported yet: ROADMAP.md Queue 1 "
+                "item 5b")
+        self.sr = int(config.get("sampling_rate", sr))
+        self.num_spk = int(sep.get("num_spk", getattr(model, "num_spk", 2)))
+        self.model = model.to(self.device).eval()
+        self.separator = Separator(
+            self.model, sr=self.sr,
+            eval_win=float(sep.get("eval_win", 2.4)),
+            eval_hop=float(sep.get("eval_hop", 0.8)),
+            frame_len=int(sep.get("frame_length", 512)),
+            frame_hop=int(sep.get("frame_shift", 256)),
+            batch_size=int(sep.get("batch_size", 32)),
+            ipd_index=sep.get("ipd"),
+            merge=bool(sep.get("merge", False)),
+            device=self.device,
+        )
+        self.stitcher = Stitcher(
+            eval_win=float(sti.get("eval_win", sep.get("eval_win", 2.4))),
+            eval_hop=float(sti.get("eval_hop", sep.get("eval_hop", 0.8))),
+            fft_hop=int(sti.get("hop_size", sep.get("frame_shift", 256))),
+            sr=self.sr,
+            wta_floor=float(bf.get("wta_thresh", 1e-4)),
+            num_spk=self.num_spk,
+            device=self.device,
+        )
+        self.beamformer = Beamformer(
+            bf_type=bf.get("type", "masking"),
+            sr=self.sr,
+            n_fft=int(bf.get("n_fft", 512)),
+            hop_length=int(bf.get("hop_size", 256)),
+            eval_win=float(bf.get("eval_win", 2.4)),
+            eval_hop=float(bf.get("eval_hop", 0.8)),
+            proceed_margin=float(bf.get("proceed_margin", 2.0)),
+            device=self.device,
+        )
+
+    @torch.no_grad()
+    def process(self, wav: np.ndarray) -> Tuple[np.ndarray, ...]:
+        """wav (T,) -> tuple of num_spk separated streams (T,), float32."""
+        wav = torch.as_tensor(np.asarray(wav, np.float32), device=self.device)
+        if wav.ndim == 2 and wav.shape[0] == 1:
+            wav = wav[0]
+        if wav.ndim != 1:
+            raise NotImplementedError(
+                "multichannel input is not ported yet: ROADMAP.md Queue 1 "
+                "item 6")
+        total = wav.shape[-1]
+        wav = pad_for_windows(wav, self.separator.win, self.separator.hop)
+        masks, mags = self.separator.separate(wav)
+        stitched = self.stitcher(masks, mags)
+        outs = self.beamformer.continuous_process(wav, stitched)
+        return tuple(o[:total].cpu().numpy() for o in outs)
+
+    def process_recording(self, key: str, wav: np.ndarray, out_dir: str):
+        """Separate one recording and write {key}_{i}.wav per stream."""
+        outs = self.process(wav)
+        out_dir = Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for i, out in enumerate(outs):
+            write_wav(out_dir / f"{key}_{i}.wav", out, self.sr)
+        return outs

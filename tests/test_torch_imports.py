@@ -1,0 +1,55 @@
+"""The port runs where the card is: with torch and numpy, and none of JAX,
+Flax, Optax, ml_dtypes, PyYAML or the css_tpu package."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import yaml
+
+REPO = Path(__file__).resolve().parent.parent
+BLOCKED = ["jax", "jaxlib", "flax", "optax", "ml_dtypes", "yaml", "css_tpu"]
+SOURCES = sorted((REPO / "css_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def test_every_module_imports_with_the_reference_stack_blocked():
+    code = f"""
+import importlib, pkgutil, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import css_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(css_tpu_torch.__path__,
+                                               "css_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert not any(m in sys.modules and sys.modules[m] is not None
+               for m in {BLOCKED!r})
+print(len(names))
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 20
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_import_of_the_reference_stack(path):
+    text = path.read_text()
+    assert not re.search(r"\b(import|from)\s+(jax|jaxlib|flax|optax|ml_dtypes)"
+                         r"\b", text)
+    assert not re.search(r"\b(import|from)\s+css_tpu(?!_torch)\b", text)
+    # yaml only inside a function (the CLI's main), never at module level
+    assert not re.search(r"^(import|from)\s+yaml\b", text, re.M)
+
+
+def test_chip_smoke_config_is_infer_1ch_yaml():
+    import chip_smoke
+
+    with open(REPO / "configs" / "infer_1ch.yaml") as fh:
+        assert chip_smoke.CONFIG == yaml.safe_load(fh)
