@@ -7,9 +7,11 @@ Phases, each timed on its own line:
   1. device: the card, its name and power limit (nvidia-smi), and the
      build of every CUDA kernel from ``css_tpu_torch/csrc`` (nvcc, cold).
   2. kernels: each kernel against its plain PyTorch version on the card,
-     in float32 with TF32 off, at the main path's shapes; kernel, plain
-     and library times (CUDA events, median of 30 after 3 warm-ups).
-  3. main path: the committed flagship checkpoint through
+     with TF32 off, at the main paths' shapes; kernel, plain and library
+     times (CUDA events, median of 30 after 3 warm-ups). K2 (the LSTM
+     recurrence) in float32 and bf16, forward and reverse, at the BLSTM's
+     hidden 512 and the causal BLSTM's hidden 1024.
+  3. Conformer path: the committed flagship checkpoint through
      ``CssPipeline.process`` on a 60 s synthetic 2-talker session, with
      launch counts reset before and read after each run:
        (a) the flagship's own bf16 compute, with the kernels;
@@ -18,6 +20,11 @@ Phases, each timed on its own line:
      (b) must match (p), and (a) must match (b) above an SI-SNR floor
      and a worst-segment SNR floor, which two stream-swapped copies of
      (b) must fail.
+  4. BLSTM path: a full-width BLSTM (hidden 1024, 3 layers) with random
+     weights from a numpy seed through ``CssPipeline.process`` on the same
+     session: float32 with the kernels, float32 on the plain versions, and
+     bf16 with the kernels; the float32 runs must match on masks and
+     streams, and bf16 must stay near float32 on the masks.
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and last the result line ``{"ok": true, "device": {...}}``. Progress goes
 to stderr. Any failed check raises, and the exit code is then non-zero;
@@ -50,9 +57,11 @@ CHECKPOINT = "checkpoints/h2ft_masksnr_best.mdl"
 SESSION_SEC = 60.0
 SEED = 20261017
 
-# H100 SXM data sheet: FP32 on the CUDA cores (both kernels run FP32 FMAs)
-# and HBM3 bandwidth. Rates at the full 700 W power limit.
+# H100 SXM data sheet: FP32 on the CUDA cores (the kernels run FP32 FMAs),
+# dense bf16 on the tensor cores, and HBM3 bandwidth. Rates at the full
+# 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Kernel vs plain on the same card, float32, TF32 off: the two sum the
@@ -75,6 +84,28 @@ PIPE_ATOL = 1e-3
 BF16_SI_SNR_DB = 15.0
 BF16_SEGMENT_SEC = 4.0
 BF16_SEGMENT_SNR_DB = 10.0
+# K2 in bf16 against its plain version: both round h to bf16 every step,
+# so a value near a rounding boundary can land one bf16 step (up to 2^-8
+# on |h| < 1) the other way and carry into later steps; 3e-2 allows about
+# 8 such steps (tests/test_torch_cuda.py holds the same bound).
+LSTM_BF16_ATOL = 3e-2
+# The BLSTM path: a full-width BLSTM (the JAX package's build_model
+# defaults: hidden 1024, i.e. 512 per direction, 3 layers) with random
+# weights from BLSTM_SEED, on the same session. Random weights make an
+# SI-SNR gate meaningless, so the gates are on masks and streams:
+#  * float32 kernels vs plain, the separator's masks (clamped at 1):
+#    the two sum the LSTM products in another order, ~1e-6 per step,
+#    carried through 3 layers and 150 steps: 1e-3 absolute; the streams:
+#    PIPE_ATOL, as for the Conformer.
+#  * bf16 vs float32 masks: bf16 keeps 8 mantissa bits in the input
+#    projections, h and the mask head, so the masks move by about 2^-8
+#    relative per rounding; at hidden 256 and 512 on the CPU the two
+#    differed by max 0.031 and mean 1.8e-3 on masks in [0, 1]: 0.1 max
+#    and 1e-2 mean absolute, the bounds tests/test_torch_blstm.py holds
+#    for bf16.
+BLSTM_SEED = 20261018
+BLSTM_MASK_ATOL = 1e-3
+BLSTM_BF16_MAX, BLSTM_BF16_MEAN = 0.1, 1e-2
 
 
 def log(*args):
@@ -183,10 +214,10 @@ def rfft_flops(n: int) -> float:
     return 2.5 * n * np.log2(n)
 
 
-def bound_ms(flops: float, nbytes: float):
-    """Least time for flops FP32 operations and nbytes of device memory
-    traffic, and which of the two bounds it."""
-    t_ops = flops / PEAK_FP32_FLOPS
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    """Least time for flops operations at ``peak`` (FP32 by default) and
+    nbytes of device memory traffic, and which of the two bounds it."""
+    t_ops = flops / peak
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -202,15 +233,64 @@ def check_close(name, got, want, atol, rtol):
 
 
 @contextlib.contextmanager
-def plain_kernels(stft_mag_cuda, istft_cuda):
-    """Route the main path through the kernels' plain versions."""
-    saved = stft_mag_cuda.stft_mag, istft_cuda.istft
+def plain_kernels(stft_mag_cuda, istft_cuda, lstm_cuda):
+    """Route the main paths through the kernels' plain versions."""
+    saved = stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused
     stft_mag_cuda.stft_mag = stft_mag_cuda.stft_mag_plain
     istft_cuda.istft = istft_cuda.istft_plain
+    lstm_cuda.lstm_fused = lstm_cuda.lstm_plain
     try:
         yield
     finally:
-        stft_mag_cuda.stft_mag, istft_cuda.istft = saved
+        (stft_mag_cuda.stft_mag, istft_cuda.istft,
+         lstm_cuda.lstm_fused) = saved
+
+
+def lstm_work(b: int, t: int, h: int, elem: int):
+    """(operations, bytes) of one LSTM direction over precomputed input
+    projections: the recurrent products (2*h*4h per row and step) and the
+    cell update (4 gate adds, 3 for c, 1 for h; the 5 sigmoid/tanh
+    evaluations are not counted); xw and W_hh read once, out written
+    once."""
+    flops = 2.0 * b * t * h * 4 * h + 8.0 * b * t * h
+    nbytes = elem * (b * t * 4 * h + h * 4 * h + b * t * h)
+    return flops, nbytes
+
+
+def stage_seconds(torch, pipe, mix, dev):
+    """Per-stage host seconds of one call, each stage ending in a
+    synchronize."""
+    from css_tpu_torch.executor.windowing import pad_for_windows
+
+    wav = torch.as_tensor(mix, device=dev)
+    wav = pad_for_windows(wav, pipe.separator.win, pipe.separator.hop)
+    stages = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    masks, mags = pipe.separator.separate(wav)
+    torch.cuda.synchronize()
+    stages["separator"] = time.perf_counter() - t
+    t = time.perf_counter()
+    stitched = pipe.stitcher(masks, mags)
+    torch.cuda.synchronize()
+    stages["stitcher"] = time.perf_counter() - t
+    t = time.perf_counter()
+    outs = pipe.beamformer.continuous_process(wav, stitched)
+    torch.cuda.synchronize()
+    stages["beamformer"] = time.perf_counter() - t
+    t = time.perf_counter()
+    [o.cpu() for o in outs]
+    stages["to_host"] = time.perf_counter() - t
+    return stages
+
+
+def separator_masks(torch, pipe, mix, dev):
+    """The separator's masks (windows, T, F, S) for the whole session."""
+    from css_tpu_torch.executor.windowing import pad_for_windows
+
+    wav = pad_for_windows(torch.as_tensor(mix, device=dev),
+                          pipe.separator.win, pipe.separator.hop)
+    return pipe.separator.separate(wav)[0]
 
 
 def main() -> int:
@@ -222,9 +302,9 @@ def main() -> int:
 
     from css_tpu_torch.cli.separate import load_model
     from css_tpu_torch.executor.pipeline import CssPipeline
-    from css_tpu_torch.executor.windowing import (EXTRA_SAMPLES,
-                                                  pad_for_windows)
-    from css_tpu_torch.ops import _build, istft_cuda, stft_mag_cuda
+    from css_tpu_torch.executor.windowing import EXTRA_SAMPLES
+    from css_tpu_torch.models import blstm
+    from css_tpu_torch.ops import _build, istft_cuda, lstm_cuda, stft_mag_cuda
     from css_tpu_torch.ops import stft as stft_ops
 
     # ---------------------------------------------------------- 1. device
@@ -331,27 +411,104 @@ def main() -> int:
         "launches": None, "max_abs_err": err1, "ms": ms1, "plain_ms": plain1,
         "bound_ms": b1, "bound_by": by1, "library_ms": None})
     del x, sig, mask, spec, got, want
+
+    # K2 on one LSTM direction of a separator batch: the BLSTM's hidden 512
+    # per direction (input 1024) and the causal BLSTM's hidden 1024, each
+    # in float32 and bf16, forward and reverse. The inputs are a layer's:
+    # xw = x @ W_ih^T + b with lecun-normal W_ih, orthogonal W_hh (the
+    # families of blstm.init_params) and x ~ N(0, 1), a LayerNorm output.
+    lstm_cases = []
+    lib2 = None
+    for hidden in (512, 1024):
+        layer = blstm.init_params(SEED + hidden, {
+            "blstm_hdim": 1024, "blstm_num_layers": 1,
+            "blstm_causal": hidden == 1024})["encoders_0"]
+        x = torch.as_tensor(rng.standard_normal((batch, n_frames, 1024))
+                            .astype(np.float32), device=dev)
+        w_ih = torch.as_tensor(layer["w_ih_fwd"], device=dev)
+        bias = torch.as_tensor(rng.uniform(-0.2, 0.2, 4 * hidden)
+                               .astype(np.float32), device=dev)
+        w_hh32 = torch.as_tensor(np.ascontiguousarray(layer["w_hh_fwd"].T),
+                                 device=dev)  # (h, 4h)
+        xw32 = x @ w_ih.t() + bias
+        for dtype, elem, peak in ((torch.float32, 4, PEAK_FP32_FLOPS),
+                                  (torch.bfloat16, 2, PEAK_BF16_FLOPS)):
+            xw, w_hh = xw32.to(dtype), w_hh32.to(dtype)
+            for reverse in (False, True):
+                got = lstm_cuda.lstm_fused(xw, w_hh, hidden, reverse)
+                want = lstm_cuda.lstm_plain(xw, w_hh, hidden, reverse)
+                torch.cuda.synchronize()
+                label = (f"lstm_fused h{hidden} {str(dtype)[6:]} "
+                         f"{'rev' if reverse else 'fwd'}")
+                if dtype == torch.float32:
+                    err = check_close(label, got, want, KERNEL_ATOL,
+                                      KERNEL_RTOL)
+                else:
+                    err = check_close(label, got.float(), want.float(),
+                                      LSTM_BF16_ATOL, 0.0)
+                ms = time_ms(torch, lambda: lstm_cuda.lstm_fused(
+                    xw, w_hh, hidden, reverse))
+                plain = time_ms(torch, lambda: lstm_cuda.lstm_plain(
+                    xw, w_hh, hidden, reverse))
+                bnd, by = bound_ms(*lstm_work(batch, n_frames, hidden, elem),
+                                   peak=peak)
+                case = {"hidden": hidden, "dtype": str(dtype)[6:],
+                        "reverse": reverse, "shape": list(xw.shape),
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bnd, "bound_by": by}
+                log(f"K2 {label} {tuple(xw.shape)}: max_abs_err {err:.3e}; "
+                    f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+                    f"{bnd:.4f} ({by})")
+                lstm_cases.append(case)
+        if hidden == 512:
+            # the yardstick: cuDNN's LSTM (one layer, one direction, float32)
+            # on the layer's input x, so it includes the input projection
+            # x @ W_ih^T that the kernel is handed precomputed
+            ref = torch.nn.LSTM(1024, hidden, batch_first=True).to(dev)
+            with torch.no_grad():
+                ref.weight_ih_l0.copy_(w_ih)
+                ref.weight_hh_l0.copy_(w_hh32.t())
+                ref.bias_ih_l0.copy_(bias)
+                ref.bias_hh_l0.zero_()
+
+                def lib_lstm():
+                    return ref(x)[0]
+
+                lib_err = float((lib_lstm() - lstm_cuda.lstm_fused(
+                    xw32, w_hh32, hidden)).abs().max())
+                lib2 = time_ms(torch, lib_lstm)
+            log(f"K2 library: torch.nn.LSTM (cuDNN, float32, includes the "
+                f"input projection) {lib2:.4f} ms; max abs diff from the "
+                f"kernel {lib_err:.3e}")
+            del ref
+        del x, w_ih, w_hh32, xw32, xw, w_hh, got, want
+    print("lstm_cases " + json.dumps(lstm_cases), flush=True)
+    main2 = lstm_cases[0]  # hidden 512, float32, forward: the BLSTM's
+    results.append({
+        "name": "lstm_fused", "route": "cuda",
+        "source": "css_tpu_torch/csrc/lstm.cu",
+        "replaces": "css_tpu/ops/lstm_pallas.py:103",
+        "launches": None, "max_abs_err": max(
+            c["max_abs_err"] for c in lstm_cases if c["dtype"] == "float32"),
+        "ms": main2["ms"], "plain_ms": main2["plain_ms"],
+        "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
+        "library_ms": lib2})
     phase("kernels", t0)
 
-    # ------------------------------------------------------- 3. main path
-    t0 = time.perf_counter()
-    model = load_model(CHECKPOINT)
-    if model.compute_dtype != torch.bfloat16:
-        raise AssertionError("the flagship's conf should select bf16")
-    mix, _ = synthetic_session(SESSION_SEC, CONFIG["sampling_rate"], SEED)
-    pipe = CssPipeline(model, CONFIG, device="cuda")
-    phase("load", t0)
-    counters = (stft_mag_cuda.stft_mag, istft_cuda.istft)
-    expect = {"stft_mag": -(-n_windows // batch), "istft": 1}
+    counters = (stft_mag_cuda.stft_mag, istft_cuda.istft,
+                lstm_cuda.lstm_fused)
+    n_batches = -(-n_windows // batch)
 
-    def run(label, check_counts=True):
+    def run(pipe, mix, label, expect):
+        """One call of the main path, launch counts reset just before it
+        and read just after; expect=None skips the count check."""
         for c in counters:
             c.launches = 0
         t = time.perf_counter()
         outs = pipe.process(mix)  # ends with a device-to-host copy
         sec = time.perf_counter() - t
         counts = {c.__name__: c.launches for c in counters}
-        if check_counts and counts != expect:
+        if expect is not None and counts != expect:
             raise AssertionError(f"run {label}: launches {counts}, "
                                  f"expected {expect}")
         if len(outs) != 2:
@@ -365,39 +522,35 @@ def main() -> int:
             f"launches {counts}")
         return outs, counts, sec
 
-    out_a, counts_a, cold_a = run("a bf16 (cold)")
-    _, _, warm_a = run("a bf16 (warm)")
-    for r in results:
-        r["launches"] = counts_a[r["name"]]
+    def plain_run(pipe, mix, label):
+        with plain_kernels(stft_mag_cuda, istft_cuda, lstm_cuda):
+            outs, counts, sec = run(pipe, mix, label, None)
+        if any(counts.values()):
+            raise AssertionError(f"plain run launched kernels: {counts}")
+        return outs, sec
 
-    # per-stage seconds of the warm bf16 path
-    wav = torch.as_tensor(mix, device=dev)
-    wav = pad_for_windows(wav, pipe.separator.win, pipe.separator.hop)
-    stages = {}
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    masks, mags = pipe.separator.separate(wav)
-    torch.cuda.synchronize()
-    stages["separator"] = time.perf_counter() - t
-    t = time.perf_counter()
-    stitched = pipe.stitcher(masks, mags)
-    torch.cuda.synchronize()
-    stages["stitcher"] = time.perf_counter() - t
-    t = time.perf_counter()
-    outs = pipe.beamformer.continuous_process(wav, stitched)
-    torch.cuda.synchronize()
-    stages["beamformer"] = time.perf_counter() - t
-    t = time.perf_counter()
-    [o.cpu() for o in outs]
-    stages["to_host"] = time.perf_counter() - t
-    print("stages_s " + json.dumps(stages), flush=True)
+    # ------------------------------------------------- 3. Conformer path
+    t0 = time.perf_counter()
+    model = load_model(CHECKPOINT)
+    if model.compute_dtype != torch.bfloat16:
+        raise AssertionError("the flagship's conf should select bf16")
+    mix, _ = synthetic_session(SESSION_SEC, CONFIG["sampling_rate"], SEED)
+    pipe = CssPipeline(model, CONFIG, device="cuda")
+    phase("load", t0)
+    expect = {"stft_mag": n_batches, "istft": 1, "lstm_fused": 0}
+
+    out_a, counts_a, cold_a = run(pipe, mix, "a bf16 (cold)", expect)
+    _, _, warm_a = run(pipe, mix, "a bf16 (warm)", expect)
+    for r in results:
+        if r["name"] != "lstm_fused":
+            r["launches"] = counts_a[r["name"]]
+    stages = stage_seconds(torch, pipe, mix, dev)
+    print("stages_s " + json.dumps({"path": "conformer bf16", **stages}),
+          flush=True)
 
     model.compute_dtype = torch.float32
-    out_b, _, warm_b = run("b float32")
-    with plain_kernels(stft_mag_cuda, istft_cuda):
-        out_p, counts_p, _ = run("p float32 plain", check_counts=False)
-    if any(counts_p.values()):
-        raise AssertionError(f"plain run launched kernels: {counts_p}")
+    out_b, _, warm_b = run(pipe, mix, "b float32", expect)
+    out_p, _ = plain_run(pipe, mix, "p float32 plain")
     model.compute_dtype = torch.bfloat16
     pipe_err = max(float(np.abs(p - q).max()) for p, q in zip(out_b, out_p))
     if pipe_err > PIPE_ATOL:
@@ -426,14 +579,69 @@ def main() -> int:
     ok, bf16_snr = bf16_gate("(a) bf16 vs (b) float32", out_a)
     if not ok:
         raise AssertionError("bf16 vs float32: below the gate's floors")
-    print(f"main_path: {SESSION_SEC:.0f} s session, {n_windows} windows; "
-          f"bf16 cold {cold_a:.3f} s, warm {warm_a:.3f} s "
+    print(f"main_path conformer: {SESSION_SEC:.0f} s session, {n_windows} "
+          f"windows; bf16 cold {cold_a:.3f} s, warm {warm_a:.3f} s "
           f"({SESSION_SEC / warm_a:.1f} audio-sec/s); float32 warm "
           f"{warm_b:.3f} s ({SESSION_SEC / warm_b:.1f} audio-sec/s); "
           f"(b) vs plain max abs err {pipe_err:.3e} (atol {PIPE_ATOL}); "
           f"(a) vs (b) SI-SNR {bf16_snr:.2f} dB (floor {BF16_SI_SNR_DB})",
           flush=True)
-    phase("main path", t0)
+    del model, pipe
+    phase("conformer path", t0)
+
+    # ----------------------------------------------------- 4. BLSTM path
+    t0 = time.perf_counter()
+    conf = {}  # build_model's defaults: hidden 1024, 3 layers, float32
+    model = blstm.BLSTM.build_model(conf)
+    model.load_state_dict(blstm.params_from_jax(
+        blstm.init_params(BLSTM_SEED, conf)))
+    pipe = CssPipeline(model, CONFIG, device="cuda")
+    phase("blstm load", t0)
+    t0 = time.perf_counter()
+    n_dirs = 2 * len(model.encoders)
+    expect = {"stft_mag": n_batches, "istft": 1,
+              "lstm_fused": n_batches * n_dirs}
+    out_f, counts_f, cold_f = run(pipe, mix, "blstm float32 (cold)", expect)
+    _, _, warm_f = run(pipe, mix, "blstm float32 (warm)", expect)
+    for r in results:
+        if r["name"] == "lstm_fused":
+            r["launches"] = counts_f["lstm_fused"]
+    stages = stage_seconds(torch, pipe, mix, dev)
+    print("stages_s " + json.dumps({"path": "blstm float32", **stages}),
+          flush=True)
+    masks_f = separator_masks(torch, pipe, mix, dev)
+    out_q, warm_q = plain_run(pipe, mix, "blstm float32 plain")
+    with plain_kernels(stft_mag_cuda, istft_cuda, lstm_cuda):
+        masks_q = separator_masks(torch, pipe, mix, dev)
+    mask_err = float((masks_f - masks_q).abs().max())
+    stream_err = max(float(np.abs(p - q).max()) for p, q in zip(out_f, out_q))
+    if mask_err > BLSTM_MASK_ATOL or stream_err > PIPE_ATOL:
+        raise AssertionError(
+            f"BLSTM float32 with kernels vs plain: masks max abs err "
+            f"{mask_err:.3e} (atol {BLSTM_MASK_ATOL}), streams "
+            f"{stream_err:.3e} (atol {PIPE_ATOL})")
+    model.compute_dtype = torch.bfloat16
+    run(pipe, mix, "blstm bf16 (cold)", expect)
+    _, _, warm_h = run(pipe, mix, "blstm bf16 (warm)", expect)
+    masks_h = separator_masks(torch, pipe, mix, dev)
+    diff = (masks_h - masks_f).abs()
+    bf16_max, bf16_mean = float(diff.max()), float(diff.mean())
+    if bf16_max > BLSTM_BF16_MAX or bf16_mean > BLSTM_BF16_MEAN:
+        raise AssertionError(
+            f"BLSTM bf16 vs float32 masks: max {bf16_max:.3e} (bound "
+            f"{BLSTM_BF16_MAX}), mean {bf16_mean:.3e} (bound "
+            f"{BLSTM_BF16_MEAN})")
+    print(f"main_path blstm: hidden 1024 x {len(model.encoders)} layers, "
+          f"{SESSION_SEC:.0f} s session; float32 cold {cold_f:.3f} s, warm "
+          f"{warm_f:.3f} s ({SESSION_SEC / warm_f:.1f} audio-sec/s); plain "
+          f"float32 warm {warm_q:.3f} s ({SESSION_SEC / warm_q:.1f} "
+          f"audio-sec/s); bf16 warm {warm_h:.3f} s ({SESSION_SEC / warm_h:.1f}"
+          f" audio-sec/s); launches {counts_f}; float32 vs plain: masks "
+          f"max abs err {mask_err:.3e} (atol {BLSTM_MASK_ATOL}), streams "
+          f"{stream_err:.3e} (atol {PIPE_ATOL}); bf16 vs float32 masks: max "
+          f"{bf16_max:.3e} (bound {BLSTM_BF16_MAX}), mean {bf16_mean:.3e} "
+          f"(bound {BLSTM_BF16_MEAN})", flush=True)
+    phase("blstm path", t0)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi_line, flush=True)

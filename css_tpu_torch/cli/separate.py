@@ -10,6 +10,9 @@ ROADMAP.md Queue 1 item 9.
     python -m css_tpu_torch.cli.separate --config configs/infer_1ch.yaml \
         --checkpoint checkpoints/h2ft_masksnr_best.mdl \
         --corpus-dir recs/ --out-dir out/ [--device cuda]
+
+``--model BLSTM`` takes a BLSTM checkpoint written by ``css_tpu`` (the npz
+format); its conf's ``blstm_*`` and ``bf16`` keys build the model.
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ import numpy as np
 from css_tpu_torch.data.wav_io import read_wav
 from css_tpu_torch.device import resolve_device
 from css_tpu_torch.executor.pipeline import CssPipeline
-from css_tpu_torch.models import MODELS, build_model
-from css_tpu_torch.models.conformer import params_from_jax
+from css_tpu_torch.models import (MODELS, build_model,
+                                  state_dict_from_checkpoint)
 from css_tpu_torch.trainer.checkpoint import load_checkpoint
 
 log = logging.getLogger("css_tpu_torch.separate")
@@ -54,8 +57,7 @@ def load_model(checkpoint: str, name: str = "Conformer"):
     compute dtype follows the checkpoint's conf)."""
     ckpt = load_checkpoint(checkpoint)
     model = build_model(name, dict(ckpt.get("conf", {})))
-    model.load_state_dict(params_from_jax(ckpt["params"],
-                                          ckpt.get("batch_stats")))
+    model.load_state_dict(state_dict_from_checkpoint(name, ckpt))
     return model
 
 

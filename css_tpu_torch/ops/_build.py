@@ -41,6 +41,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "css_istft": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "css_stft_mag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "css_lstm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

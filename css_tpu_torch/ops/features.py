@@ -1,9 +1,9 @@
 """Spectral feature extraction: magnitude, floor, MVN (1ch).
 
-Port of ``css_tpu/ops/features.py`` (``EPSILON``, ``mvn`` and the 1ch
-``FeatureExtractor``). On a CUDA tensor the magnitude comes from the K3
-kernel (``stft_mag_cuda``); on a CPU tensor from its plain version. IPD
-features wait for the 7ch slice.
+Port of ``css_tpu/ops/features.py`` (``EPSILON``, ``mvn``,
+``cumulative_mvn`` and the 1ch ``FeatureExtractor``). On a CUDA tensor
+the magnitude comes from the K3 kernel (``stft_mag_cuda``); on a CPU
+tensor from its plain version. IPD features wait for the 7ch slice.
 
 Layout is time-major (..., T, F).
 """
@@ -28,6 +28,32 @@ def mvn(x: torch.Tensor, dim: int = -2, eps: float = EPSILON) -> torch.Tensor:
     n = x.shape[dim]
     var = torch.square(x - mean).sum(dim=dim, keepdim=True) / max(n - 1, 1)
     return (x - mean) / (torch.sqrt(var) + eps)
+
+
+def cumulative_mvn(x: torch.Tensor, carry=None, eps: float = EPSILON):
+    """Causal MVN over the time axis (-2): frame t is normalised by the
+    running per-bin statistics of frames [0..t] (Bessel-corrected, as
+    ``mvn``).
+
+    ``carry`` is ``(count, sum, sumsq)`` from a previous chunk (count a 0-d
+    tensor; sum and sumsq shaped like one frame) or None to start fresh.
+    Returns ``(normalised, new_carry)``, so chained chunk calls equal one
+    call on the whole utterance.
+    """
+    t = x.shape[-2]
+    if carry is None:
+        zeros = x.new_zeros(x.shape[:-2] + x.shape[-1:])
+        carry = (x.new_zeros(()), zeros, zeros)
+    count0, sum0, sumsq0 = carry
+    n = count0 + torch.arange(1, t + 1, dtype=x.dtype, device=x.device)
+    n = n.reshape((1,) * (x.ndim - 2) + (t, 1))
+    csum = sum0[..., None, :] + torch.cumsum(x, dim=-2)
+    csumsq = sumsq0[..., None, :] + torch.cumsum(torch.square(x), dim=-2)
+    mean = csum / n
+    var = torch.clamp(csumsq - n * torch.square(mean), min=0.0) / torch.clamp(
+        n - 1.0, min=1.0)
+    out = (x - mean) / (torch.sqrt(var) + eps)
+    return out, (count0 + t, csum[..., -1, :], csumsq[..., -1, :])
 
 
 class FeatureExtractor:

@@ -8,18 +8,22 @@ imports JAX):
 
 Float32 with TF32 off; kernel and plain version sum the same products in
 another order: 2e-4 absolute, 1e-4 relative (the tolerance of
-tests/test_istft_pallas.py for the TPU kernel).
+tests/test_istft_pallas.py for the TPU kernel). K2 in bfloat16: h is
+rounded to bf16 every step in both, so a value near a rounding boundary
+can land one bf16 step (up to 2^-8 on |h| < 1) the other way and carry
+into later steps: 3e-2 absolute (about 8 such steps).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from css_tpu_torch.ops import istft_cuda, stft_mag_cuda
+from css_tpu_torch.ops import istft_cuda, lstm_cuda, stft_mag_cuda
 from css_tpu_torch.ops import stft as stft_ops
 
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 2e-4, 1e-4
+LSTM_BF16_ATOL = 3e-2
 
 
 @pytest.fixture
@@ -82,3 +86,46 @@ def test_kernels_refuse_what_they_do_not_take(card):
         istft_cuda.istft(spec.to(torch.complex128))
     with pytest.raises(ValueError, match="2\\*hop"):
         istft_cuda.istft(spec, 512, 128)
+
+
+def _lstm_inputs(b, t, h, dtype, seed, dev):
+    rng = np.random.default_rng(seed)
+    xw = rng.standard_normal((b, t, 4 * h)).astype(np.float32)
+    # recurrent weights of order 1/sqrt(h) (the BLSTM's orthogonal W_hh:
+    # 1/sqrt(4h)), so the recurrence neither vanishes nor saturates
+    w_hh = (rng.standard_normal((h, 4 * h)) / np.sqrt(h)).astype(np.float32)
+    return (torch.as_tensor(xw, device=dev).to(dtype),
+            torch.as_tensor(w_hh, device=dev).to(dtype))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h", [(32, 150, 512), (32, 150, 1024),
+                                   (5, 37, 128), (3, 4, 99)])
+def test_lstm_kernel_matches_plain(card, b, t, h, dtype, reverse):
+    xw, w_hh = _lstm_inputs(b, t, h, dtype, b + h, card)
+    before = lstm_cuda.lstm_fused.launches
+    got = lstm_cuda.lstm_fused(xw, w_hh, h, reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_fused.launches == before + 1
+    want = lstm_cuda.lstm_plain(xw, w_hh, h, reverse=reverse)
+    assert got.shape == want.shape == (b, t, h) and got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=LSTM_BF16_ATOL, rtol=0)
+
+
+def test_lstm_kernel_refuses_what_it_does_not_take(card):
+    xw, w_hh = _lstm_inputs(4, 6, 64, torch.float32, 0, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_cuda.lstm_fused(xw.transpose(0, 1), w_hh, 64)
+    with pytest.raises(TypeError):
+        lstm_cuda.lstm_fused(xw.half(), w_hh.half(), 64)
+    with pytest.raises(ValueError, match="4h"):
+        lstm_cuda.lstm_fused(xw, w_hh, 32)
+    with pytest.raises(ValueError, match="does not fit"):
+        big, w_big = _lstm_inputs(129, 2, 1024, torch.float32, 0, card)
+        lstm_cuda.lstm_fused(big, w_big, 1024)
