@@ -8,12 +8,22 @@ Phases, each timed on its own line:
      build of every CUDA kernel from ``css_tpu_torch/csrc`` (nvcc, cold).
   2. kernels: each kernel against its plain PyTorch version on the card,
      with TF32 off, at the main paths' shapes; kernel, plain and library
-     times (CUDA events, median of 30 after 3 warm-ups). K2 (the LSTM
+     times (CUDA events, median of 30 after 3 warm-ups), and each kernel's
+     device time without host overhead (torch.profiler). K2 (the LSTM
      recurrence) in float32 and bf16, forward and reverse, at the BLSTM's
-     hidden 512 and the causal BLSTM's hidden 1024.
+     hidden 512 and the causal BLSTM's hidden 1024, each comparison
+     launching its kernel exactly once and taking no plain route, and in
+     float32 held also to a tight bound that a single-TF32 product of the
+     same function (the plain version with TF32 on) must fail, as a
+     control; then K2's phase split
+     at the main shape in float32 and bf16 (mean clock64() cycles per step
+     of barrier wait, staging of h_{t-1}, product, and gates with the
+     rest, from the kernel's optional phase record).
   3. Conformer path: the committed flagship checkpoint through
      ``CssPipeline.process`` on a 60 s synthetic 2-talker session, with
-     launch counts reset before and read after each run:
+     launch counts and plain-route counts reset before and read after
+     each run (a kernel run must launch every kernel of its path and take
+     no plain route):
        (a) the flagship's own bf16 compute, with the kernels;
        (b) float32 compute (TF32 off), with the kernels;
        (p) float32 compute on the plain versions (no kernel launch);
@@ -57,10 +67,16 @@ CHECKPOINT = "checkpoints/h2ft_masksnr_best.mdl"
 SESSION_SEC = 60.0
 SEED = 20261017
 
-# H100 SXM data sheet: FP32 on the CUDA cores (the kernels run FP32 FMAs),
-# dense bf16 on the tensor cores, and HBM3 bandwidth. Rates at the full
-# 700 W power limit.
+# H100 SXM data sheet: FP32 on the CUDA cores (K1 and K3 run FP32 FMAs),
+# dense TF32 and bf16 on the tensor cores, and HBM3 bandwidth. Rates at
+# the full 700 W power limit. K2 runs its float32 product on the tensor
+# cores as 3xTF32, three TF32 products for each float32 one, so its
+# float32 bound is taken at a third of the TF32 rate (165 TFLOP/s), the
+# fastest way to a float32-accurate product on this card; the bound at
+# the CUDA cores' FP32 rate is printed beside it.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -89,6 +105,14 @@ BF16_SEGMENT_SNR_DB = 10.0
 # on |h| < 1) the other way and carry into later steps; 3e-2 allows about
 # 8 such steps (tests/test_torch_cuda.py holds the same bound).
 LSTM_BF16_ATOL = 3e-2
+# K2 in float32 against its plain version, a second and tight bound beside
+# KERNEL_ATOL/RTOL: its 3xTF32 product keeps ~21 of float32's 24 bits,
+# while a single TF32 product keeps 11. On an H100 the kernel's max abs
+# error on h here is ~1.8e-7 and the single-TF32 control's 5e-5 to 7e-5;
+# 5e-6 lies between. The control, the plain version with its product in
+# single TF32 (torch's TF32 matmul) on the same inputs, must fail it, so a
+# kernel that rounded its operands to TF32 alone would fail the run.
+LSTM_F32_MAX_ERR = 5e-6
 # The BLSTM path: a full-width BLSTM (the JAX package's build_model
 # defaults: hidden 1024, i.e. 512 per direction, 3 layers) with random
 # weights from BLSTM_SEED, on the same session. Random weights make an
@@ -208,6 +232,33 @@ def time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(torch, fn, reps: int = 20):
+    """Mean device time of one fn() call in ms: the sum of the CUDA kernels
+    it runs, from torch.profiler's records over reps calls after a warm-up,
+    without the host's launch overhead that an event pair around a short
+    call also holds. None, with the reason logged, where the profiler saw
+    no device activity or failed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0.0)
+                       for e in prof.key_averages())
+    except Exception as exc:  # noqa: BLE001 - a measurement, not a gate
+        log(f"device_ms: torch.profiler failed: {exc!r}")
+        return None
+    if total_us <= 0:
+        log("device_ms: torch.profiler recorded no device time")
+        return None
+    return total_us / reps / 1e3
+
+
 def rfft_flops(n: int) -> float:
     """Operations of one length-n real FFT (or its inverse) by a radix-2
     algorithm: half of the complex FFT's 5 n log2 n."""
@@ -257,6 +308,71 @@ def lstm_work(b: int, t: int, h: int, elem: int):
     return flops, nbytes
 
 
+def main_shapes() -> dict:
+    """The main paths' kernel shapes under CONFIG: a separator batch of
+    ``batch`` windows of ``win`` samples, ``n_frames`` frames each, and
+    the ``n_windows`` windows that cover the session."""
+    from css_tpu_torch.executor.windowing import EXTRA_SAMPLES
+
+    sep = CONFIG["separation"]
+    sr = CONFIG["sampling_rate"]
+    win = int(sep["eval_win"] * sr) + EXTRA_SAMPLES
+    win_hop = int(sep["eval_hop"] * sr)
+    frame, hop = sep["frame_length"], sep["frame_shift"]
+    return {"batch": sep["batch_size"], "win": win, "frame": frame,
+            "hop": hop, "n_frames": (win - frame) // hop + 1,
+            "n_windows": -(-(int(SESSION_SEC * sr) - win) // win_hop) + 1}
+
+
+def stft_input(torch, dev):
+    """K3's input on the main path: one separator batch of windows, here
+    noise of standard deviation 0.1, from SEED."""
+    m = main_shapes()
+    x = np.random.default_rng(SEED).standard_normal((m["batch"], m["win"]))
+    return torch.as_tensor((x * 0.1).astype(np.float32), device=dev)
+
+
+def lstm_layer_inputs(torch, dev, hidden: int):
+    """K2's inputs on one LSTM direction of a separator batch, at the
+    BLSTM's hidden 512 a direction (input 1024) or the causal BLSTM's 1024,
+    from SEED + hidden: xw = x @ W_ih^T + b with lecun-normal W_ih and
+    orthogonal W_hh (the families of blstm.init_params) and x ~ N(0, 1), a
+    LayerNorm output. Returns x, W_ih (4h, 1024), b (4h,), W_hh (h, 4h) and
+    xw (B, T, 4h), float32."""
+    from css_tpu_torch.models import blstm
+
+    m = main_shapes()
+    rng = np.random.default_rng(SEED + hidden)
+    layer = blstm.init_params(SEED + hidden, {
+        "blstm_hdim": 1024, "blstm_num_layers": 1,
+        "blstm_causal": hidden == 1024})["encoders_0"]
+    x = torch.as_tensor(rng.standard_normal((m["batch"], m["n_frames"], 1024))
+                        .astype(np.float32), device=dev)
+    w_ih = torch.as_tensor(layer["w_ih_fwd"], device=dev)
+    bias = torch.as_tensor(rng.uniform(-0.2, 0.2, 4 * hidden)
+                           .astype(np.float32), device=dev)
+    w_hh = torch.as_tensor(np.ascontiguousarray(layer["w_hh_fwd"].T),
+                           device=dev)
+    return x, w_ih, bias, w_hh, x @ w_ih.t() + bias
+
+
+def counted(kernel, n: int, label: str, fn):
+    """fn(), which must launch ``kernel``'s wrapper n times and take no
+    plain route; the counts are restored after, so that comparison
+    launches never count toward a path's run."""
+    saved = kernel.launches, kernel.plain_routes
+    kernel.launches = kernel.plain_routes = 0
+    try:
+        out = fn()
+        if kernel.launches != n or kernel.plain_routes != 0:
+            raise AssertionError(
+                f"{label}: {kernel.launches} launches and "
+                f"{kernel.plain_routes} plain routes, expected {n} and 0")
+    finally:
+        kernel.launches, kernel.plain_routes = saved
+    return out
+
+
 def stage_seconds(torch, pipe, mix, dev):
     """Per-stage host seconds of one call, each stage ending in a
     synchronize."""
@@ -302,7 +418,6 @@ def main() -> int:
 
     from css_tpu_torch.cli.separate import load_model
     from css_tpu_torch.executor.pipeline import CssPipeline
-    from css_tpu_torch.executor.windowing import EXTRA_SAMPLES
     from css_tpu_torch.models import blstm
     from css_tpu_torch.ops import _build, istft_cuda, lstm_cuda, stft_mag_cuda
     from css_tpu_torch.ops import stft as stft_ops
@@ -330,22 +445,19 @@ def main() -> int:
 
     # --------------------------------------------------------- 2. kernels
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED)
-    sep_conf = CONFIG["separation"]
-    frame, hop = sep_conf["frame_length"], sep_conf["frame_shift"]
+    shapes = main_shapes()
+    frame, hop = shapes["frame"], shapes["hop"]
     sr = CONFIG["sampling_rate"]
-    win = int(sep_conf["eval_win"] * sr) + EXTRA_SAMPLES
-    win_hop = int(sep_conf["eval_hop"] * sr)
-    batch = sep_conf["batch_size"]
+    win, batch = shapes["win"], shapes["batch"]
     # windows that cover the session (73 for 60 s at the 0.8 s hop)
-    n_windows = -(-(int(SESSION_SEC * sr) - win) // win_hop) + 1
+    n_windows = shapes["n_windows"]
     bins = frame // 2 + 1
     results = []
 
     # K3 on one separator batch of windows
-    x = torch.as_tensor(rng.standard_normal((batch, win)).astype(np.float32)
-                        * 0.1, device=dev)
-    got = stft_mag_cuda.stft_mag(x, frame, hop)
+    x = stft_input(torch, dev)
+    got = counted(stft_mag_cuda.stft_mag, 1, "stft_mag",
+                  lambda: stft_mag_cuda.stft_mag(x, frame, hop))
     want = stft_mag_cuda.stft_mag_plain(x, frame, hop)
     torch.cuda.synchronize()
     err3 = check_close("stft_mag", got, want, KERNEL_ATOL, KERNEL_RTOL)
@@ -360,36 +472,41 @@ def main() -> int:
     ms3 = time_ms(torch, lambda: stft_mag_cuda.stft_mag(x, frame, hop))
     plain3 = time_ms(torch, lambda: stft_mag_cuda.stft_mag_plain(x, frame, hop))
     lib3 = time_ms(torch, lib_fn)
+    dev3 = device_ms(torch, lambda: stft_mag_cuda.stft_mag(x, frame, hop))
+    lib_dev3 = device_ms(torch, lib_fn)
     # the function's least work: per frame a window multiply, a real FFT
     # and |.| of every bin; the signal read once, the magnitudes written
-    # once. The kernel's own DFT-as-matrix-product count is logged beside.
+    # once
     b3, by3 = bound_ms(
         batch * n_frames * (frame + rfft_flops(frame) + 4 * bins),
         4.0 * (x.numel() + got.numel()))
-    dft3, _ = bound_ms(2.0 * batch * n_frames * frame * 2 * bins, 0.0)
     log(f"K3 stft_mag {tuple(x.shape)}: max_abs_err {err3:.3e} (torch.stft "
         f"{lib_err:.3e}); kernel_ms {ms3:.4f} plain_ms {plain3:.4f} "
-        f"library_ms {lib3:.4f} bound_ms {b3:.4f} ({by3}); "
-        f"dft_matmul_flops_ms {dft3:.4f}")
+        f"library_ms {lib3:.4f} bound_ms {b3:.4f} ({by3}); device time: "
+        f"kernel {dev3} ms, library {lib_dev3} ms")
     results.append({
         "name": "stft_mag", "route": "cuda",
         "source": "css_tpu_torch/csrc/stft_mag.cu",
         "replaces": "css_tpu/ops/_stft_pallas_r01.py:74",
         "launches": None, "max_abs_err": err3, "ms": ms3, "plain_ms": plain3,
-        "bound_ms": b3, "bound_by": by3, "library_ms": lib3})
+        "bound_ms": b3, "bound_by": by3, "library_ms": lib3,
+        "device_ms": dev3, "library_device_ms": lib_dev3})
 
     # K1 on every masked stream of a 60 s recording: 2 x 73 rows
+    rng = np.random.default_rng(SEED + 1)
     rows = 2 * n_windows
     sig = torch.as_tensor(rng.standard_normal((rows, win)).astype(np.float32)
                           * 0.1, device=dev)
     mask = torch.as_tensor(rng.uniform(0.0, 1.0, (rows, n_frames, bins))
                            .astype(np.float32), device=dev)
     spec = (stft_ops.stft(sig, frame, hop) * mask).contiguous()
-    got = istft_cuda.istft(spec, frame, hop)
+    got = counted(istft_cuda.istft, 1, "istft",
+                  lambda: istft_cuda.istft(spec, frame, hop))
     want = istft_cuda.istft_plain(spec, frame, hop)
     torch.cuda.synchronize()
     err1 = check_close("istft", got, want, KERNEL_ATOL, KERNEL_RTOL)
     ms1 = time_ms(torch, lambda: istft_cuda.istft(spec, frame, hop))
+    dev1 = device_ms(torch, lambda: istft_cuda.istft(spec, frame, hop))
     plain1 = time_ms(torch, lambda: istft_cuda.istft_plain(spec, frame, hop))
     # least work: per frame an inverse real FFT and a window multiply, per
     # sample an overlap add and the envelope multiply; the spectrum read
@@ -403,63 +520,77 @@ def main() -> int:
     # no one-call library counterpart
     log(f"K1 istft {tuple(spec.shape)}: max_abs_err {err1:.3e}; kernel_ms "
         f"{ms1:.4f} plain_ms {plain1:.4f} bound_ms {b1:.4f} ({by1}); "
-        f"dft_matmul_flops_ms {dft1:.4f}")
+        f"dft_matmul_flops_ms {dft1:.4f}; device time {dev1} ms")
     results.append({
         "name": "istft", "route": "cuda",
         "source": "css_tpu_torch/csrc/istft.cu",
         "replaces": "css_tpu/ops/istft_pallas.py:87",
         "launches": None, "max_abs_err": err1, "ms": ms1, "plain_ms": plain1,
-        "bound_ms": b1, "bound_by": by1, "library_ms": None})
+        "bound_ms": b1, "bound_by": by1, "library_ms": None,
+        "device_ms": dev1})
     del x, sig, mask, spec, got, want
 
     # K2 on one LSTM direction of a separator batch: the BLSTM's hidden 512
-    # per direction (input 1024) and the causal BLSTM's hidden 1024, each
-    # in float32 and bf16, forward and reverse. The inputs are a layer's:
-    # xw = x @ W_ih^T + b with lecun-normal W_ih, orthogonal W_hh (the
-    # families of blstm.init_params) and x ~ N(0, 1), a LayerNorm output.
+    # per direction and the causal BLSTM's hidden 1024, each in float32 and
+    # bf16, forward and reverse, on a layer's inputs (lstm_layer_inputs)
     lstm_cases = []
     lib2 = None
+    tf32_controls = {}
     for hidden in (512, 1024):
-        layer = blstm.init_params(SEED + hidden, {
-            "blstm_hdim": 1024, "blstm_num_layers": 1,
-            "blstm_causal": hidden == 1024})["encoders_0"]
-        x = torch.as_tensor(rng.standard_normal((batch, n_frames, 1024))
-                            .astype(np.float32), device=dev)
-        w_ih = torch.as_tensor(layer["w_ih_fwd"], device=dev)
-        bias = torch.as_tensor(rng.uniform(-0.2, 0.2, 4 * hidden)
-                               .astype(np.float32), device=dev)
-        w_hh32 = torch.as_tensor(np.ascontiguousarray(layer["w_hh_fwd"].T),
-                                 device=dev)  # (h, 4h)
-        xw32 = x @ w_ih.t() + bias
-        for dtype, elem, peak in ((torch.float32, 4, PEAK_FP32_FLOPS),
-                                  (torch.bfloat16, 2, PEAK_BF16_FLOPS)):
+        x, w_ih, bias, w_hh32, xw32 = lstm_layer_inputs(torch, dev, hidden)
+        for dtype, elem in ((torch.float32, 4), (torch.bfloat16, 2)):
             xw, w_hh = xw32.to(dtype), w_hh32.to(dtype)
             for reverse in (False, True):
-                got = lstm_cuda.lstm_fused(xw, w_hh, hidden, reverse)
-                want = lstm_cuda.lstm_plain(xw, w_hh, hidden, reverse)
-                torch.cuda.synchronize()
                 label = (f"lstm_fused h{hidden} {str(dtype)[6:]} "
                          f"{'rev' if reverse else 'fwd'}")
+                got = counted(lstm_cuda.lstm_fused, 1, label,
+                              lambda: lstm_cuda.lstm_fused(xw, w_hh, hidden,
+                                                           reverse))
+                want = lstm_cuda.lstm_plain(xw, w_hh, hidden, reverse)
+                torch.cuda.synchronize()
+                flops, nbytes = lstm_work(batch, n_frames, hidden, elem)
                 if dtype == torch.float32:
                     err = check_close(label, got, want, KERNEL_ATOL,
                                       KERNEL_RTOL)
+                    if err > LSTM_F32_MAX_ERR:
+                        raise AssertionError(
+                            f"{label}: max abs err {err:.3e} > "
+                            f"{LSTM_F32_MAX_ERR} (3xTF32's bound)")
+                    bnd, by = bound_ms(flops, nbytes, PEAK_3XTF32_FLOPS)
                 else:
                     err = check_close(label, got.float(), want.float(),
                                       LSTM_BF16_ATOL, 0.0)
+                    bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
                 ms = time_ms(torch, lambda: lstm_cuda.lstm_fused(
                     xw, w_hh, hidden, reverse))
                 plain = time_ms(torch, lambda: lstm_cuda.lstm_plain(
                     xw, w_hh, hidden, reverse))
-                bnd, by = bound_ms(*lstm_work(batch, n_frames, hidden, elem),
-                                   peak=peak)
                 case = {"hidden": hidden, "dtype": str(dtype)[6:],
                         "reverse": reverse, "shape": list(xw.shape),
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bnd, "bound_by": by}
+                if dtype == torch.float32:
+                    case["bound_fp32_cores_ms"] = bound_ms(flops, nbytes)[0]
                 log(f"K2 {label} {tuple(xw.shape)}: max_abs_err {err:.3e}; "
                     f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
                     f"{bnd:.4f} ({by})")
                 lstm_cases.append(case)
+        # the control: the same function with its product in single TF32
+        # must fail the tight float32 bound
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            ctrl = lstm_cuda.lstm_plain(xw32, w_hh32, hidden)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        ctrl_err = float((ctrl - lstm_cuda.lstm_plain(xw32, w_hh32, hidden))
+                         .abs().max())
+        tf32_controls[hidden] = ctrl_err
+        log(f"K2 control h{hidden}: single-TF32 plain version vs plain, max "
+            f"abs err {ctrl_err:.3e} (must exceed {LSTM_F32_MAX_ERR})")
+        if not ctrl_err > LSTM_F32_MAX_ERR:
+            raise AssertionError(
+                f"K2 h{hidden}: a single-TF32 product passes the float32 "
+                f"bound {LSTM_F32_MAX_ERR} (max abs err {ctrl_err:.3e})")
         if hidden == 512:
             # the yardstick: cuDNN's LSTM (one layer, one direction, float32)
             # on the layer's input x, so it includes the input projection
@@ -474,15 +605,36 @@ def main() -> int:
                 def lib_lstm():
                     return ref(x)[0]
 
-                lib_err = float((lib_lstm() - lstm_cuda.lstm_fused(
+                lib_err = float((lib_lstm() - lstm_cuda.lstm_plain(
                     xw32, w_hh32, hidden)).abs().max())
                 lib2 = time_ms(torch, lib_lstm)
             log(f"K2 library: torch.nn.LSTM (cuDNN, float32, includes the "
                 f"input projection) {lib2:.4f} ms; max abs diff from the "
-                f"kernel {lib_err:.3e}")
+                f"plain version {lib_err:.3e}")
             del ref
-        del x, w_ih, w_hh32, xw32, xw, w_hh, got, want
+        del x, w_ih, w_hh32, xw32, xw, w_hh, got, want, ctrl
     print("lstm_cases " + json.dumps(lstm_cases), flush=True)
+    print("lstm_tf32_control " + json.dumps({
+        "bound": LSTM_F32_MAX_ERR,
+        "kernel_max_abs_err": max(c["max_abs_err"] for c in lstm_cases
+                                  if c["dtype"] == "float32"),
+        "single_tf32_max_abs_err": tf32_controls}), flush=True)
+    # K2's phase split at the main shape, forward: where a step's cycles go
+    # (thread 0 of each block, averaged over blocks and steps); the
+    # product plus gates is the sum of the last two phases
+    _, _, _, w_hh32, xw32 = lstm_layer_inputs(torch, dev, 512)
+    for dtype in (torch.float32, torch.bfloat16):
+        xw, w_hh = xw32.to(dtype), w_hh32.to(dtype)
+        split = lstm_cuda.phase_split(xw, w_hh, 512)
+        step_cycles = sum(split.values())
+        print("lstm_phases " + json.dumps({
+            "shape": list(xw.shape), "dtype": str(dtype)[6:],
+            "cycles_per_step": split,
+            "product_plus_gates": split["product"] + split["gates"],
+            "share": {k: v / step_cycles for k, v in split.items()}}),
+            flush=True)
+    dev2 = device_ms(torch, lambda: lstm_cuda.lstm_fused(xw32, w_hh32, 512))
+    del xw, w_hh, xw32, w_hh32
     main2 = lstm_cases[0]  # hidden 512, float32, forward: the BLSTM's
     results.append({
         "name": "lstm_fused", "route": "cuda",
@@ -492,7 +644,7 @@ def main() -> int:
             c["max_abs_err"] for c in lstm_cases if c["dtype"] == "float32"),
         "ms": main2["ms"], "plain_ms": main2["plain_ms"],
         "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
-        "library_ms": lib2})
+        "library_ms": lib2, "device_ms": dev2})
     phase("kernels", t0)
 
     counters = (stft_mag_cuda.stft_mag, istft_cuda.istft,
@@ -500,17 +652,22 @@ def main() -> int:
     n_batches = -(-n_windows // batch)
 
     def run(pipe, mix, label, expect):
-        """One call of the main path, launch counts reset just before it
-        and read just after; expect=None skips the count check."""
+        """One call of the main path, launch and plain-route counts reset
+        just before it and read just after; expect=None (the plain run)
+        skips both checks."""
         for c in counters:
             c.launches = 0
+            c.plain_routes = 0
         t = time.perf_counter()
         outs = pipe.process(mix)  # ends with a device-to-host copy
         sec = time.perf_counter() - t
         counts = {c.__name__: c.launches for c in counters}
+        routes = {c.__name__: c.plain_routes for c in counters}
         if expect is not None and counts != expect:
             raise AssertionError(f"run {label}: launches {counts}, "
                                  f"expected {expect}")
+        if expect is not None and any(routes.values()):
+            raise AssertionError(f"run {label}: plain routes taken {routes}")
         if len(outs) != 2:
             raise AssertionError(f"run {label}: {len(outs)} streams")
         for o in outs:
@@ -519,7 +676,7 @@ def main() -> int:
             if abs(float(np.abs(o).max()) - 0.9) > 1e-4:
                 raise AssertionError(f"run {label}: peak {np.abs(o).max()}")
         log(f"run {label}: {sec:.3f} s, {SESSION_SEC / sec:.1f} audio-sec/s, "
-            f"launches {counts}")
+            f"launches {counts}, plain routes {routes}")
         return outs, counts, sec
 
     def plain_run(pipe, mix, label):

@@ -9,7 +9,9 @@ streams, and resynthesised by the K1 masked-iSTFT kernel in ONE launch
 for all windows and streams. The per-window waveforms are then assembled
 on the proceed-margin partition of the timeline and peak-normalised.
 
-The Souden MVDR type waits for the 7ch slice (ROADMAP.md Queue 1 item 6).
+The Souden MVDR type, the reference's default, waits for the 7ch slice
+(ROADMAP.md Queue 1 item 6): it raises, so a config that names no type
+fails rather than giving another result than the reference.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ DEDUP_FLOOR = 10.0 ** (-40.0 / 20.0)
 class Beamformer:
     def __init__(
         self,
-        bf_type: str = "masking",
+        bf_type: str = "souden_mvdr",
         sr: int = 16000,
         n_fft: int = 512,
         hop_length: int = 256,

@@ -2,9 +2,10 @@
 
 Port of ``css_tpu/executor/pipeline.py``: separator -> stitcher ->
 beamformer per recording, configured from the reference YAML schema
-({separation, stitching, beamforming}, ``configs/infer_1ch.yaml``). The
-recording goes to ``device`` once; the separated streams come back to the
-host as numpy.
+({separation, stitching, beamforming}, ``configs/infer_1ch.yaml``), with
+the reference's defaults: a config without ``beamforming.type`` asks for
+Souden MVDR, which waits for the 7ch slice. The recording goes to
+``device`` once; the separated streams come back to the host as numpy.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ class CssPipeline:
             device=self.device,
         )
         self.beamformer = Beamformer(
-            bf_type=bf.get("type", "masking"),
+            bf_type=bf.get("type", "souden_mvdr"),
             sr=self.sr,
             n_fft=int(bf.get("n_fft", 512)),
             hop_length=int(bf.get("hop_size", 256)),
@@ -75,14 +76,19 @@ class CssPipeline:
 
     @torch.no_grad()
     def process(self, wav: np.ndarray) -> Tuple[np.ndarray, ...]:
-        """wav (T,) -> tuple of num_spk separated streams (T,), float32."""
-        wav = torch.as_tensor(np.asarray(wav, np.float32), device=self.device)
-        if wav.ndim == 2 and wav.shape[0] == 1:
+        """wav (T,) or (C, T) -> tuple of num_spk separated streams (T,),
+        float32. A (C, T) recording is separated from channel 0, as the
+        reference does under the 1ch config: with no IPD features the
+        separator reads channel 0's magnitude, and the masking beamformer
+        masks channel 0's spectrum. (IPD features and Souden MVDR, the
+        options that read the other channels, raise in the constructor.)"""
+        wav = np.asarray(wav, np.float32)
+        if wav.ndim == 2:
             wav = wav[0]
         if wav.ndim != 1:
-            raise NotImplementedError(
-                "multichannel input is not ported yet: ROADMAP.md Queue 1 "
-                "item 6")
+            raise ValueError(f"a recording is (T,) or (C, T), got "
+                             f"{wav.shape}")
+        wav = torch.as_tensor(wav, device=self.device)
         total = wav.shape[-1]
         wav = pad_for_windows(wav, self.separator.win, self.separator.hop)
         masks, mags = self.separator.separate(wav)

@@ -1,4 +1,5 @@
-"""Build the CUDA kernels under ``csrc/`` into one shared library.
+"""Build the CUDA kernels under ``csrc/`` into one shared library, and the
+launch helpers the kernel wrappers share.
 
 The sources have a plain C interface (no PyTorch headers), so each one
 compiles with ``nvcc`` in seconds; all are compiled at once, in parallel,
@@ -39,9 +40,9 @@ _I = ctypes.c_int
 # C entry point -> argtypes (every pointer and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints)
 SIGNATURES = {
-    "css_istft": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "css_stft_mag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "css_lstm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "css_istft": [_P] * 4 + [_I] * 5 + [_P],
+    "css_stft_mag": [_P] * 4 + [_I] * 7 + [_P],
+    "css_lstm": [_P] * 6 + [_I] * 12 + [_P],
 }
 
 
@@ -125,6 +126,17 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def split_rows(n: int, limit: int) -> list:
+    """[start, stop) ranges of at most ``limit`` consecutive rows, as even
+    as possible, covering ``range(n)``: one launch each, for a kernel whose
+    rows (batch entries) are independent and whose launch takes at most
+    ``limit`` of them. No range for n == 0."""
+    if limit < 1:
+        raise ValueError(f"split_rows: limit {limit} < 1")
+    parts = -(-n // limit)
+    return [(n * i // parts, n * (i + 1) // parts) for i in range(parts)]
 
 
 def check(err: int, what: str) -> None:

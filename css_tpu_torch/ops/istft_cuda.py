@@ -16,9 +16,14 @@ one row and 8 hop-slots, stages the 9 contributing spectra in shared
 memory and reuses each synthesis-matrix value for the 8 slots from a
 register; see the source for the layout.
 
-``istft(spec)`` on a CPU tensor returns the plain version; on a CUDA
-tensor it launches the kernel or raises (no fallback). ``istft.launches``
-counts kernel launches.
+``istft(spec)`` on a CPU tensor returns the plain version. On a CUDA
+tensor it launches the kernel, or raises, except on one route, decided
+from the shape alone before any launch and counted in
+``istft.plain_routes``: **frame_len != 2*hop, or hop > 1024** (one
+thread per sample of a hop-slot), runs the plain version on the card, as
+the reference runs such shapes on XLA. More than ``MAX_ROWS`` rows are
+split across launches (rows are independent, so this is exact).
+``istft.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ import torch
 
 from css_tpu_torch.ops import _build
 from css_tpu_torch.ops import stft as stft_ops
+
+MAX_ROWS = 65535  # rows sit in gridDim.y
+MAX_HOP = 1024  # threads per block
 
 
 def istft_plain(spec: torch.Tensor, frame_len: int = 512,
@@ -71,9 +79,6 @@ def istft(spec: torch.Tensor, frame_len: int = 512,
         return istft_plain(spec, frame_len, hop)
     if spec.device.type != "cuda":
         raise ValueError(f"istft: unsupported device {spec.device}")
-    if frame_len != 2 * hop:
-        raise ValueError(f"istft kernel needs frame_len == 2*hop, got "
-                         f"{frame_len} and {hop}")
     if spec.dtype != torch.complex64:
         raise TypeError(f"istft kernel takes complex64, got {spec.dtype}")
     if spec.ndim != 3:
@@ -83,22 +88,28 @@ def istft(spec: torch.Tensor, frame_len: int = 512,
         raise ValueError("istft kernel needs a contiguous spectrum")
     rows, num_frames, bins = spec.shape
     n_fft = (bins - 1) * 2
-    if not (0 < frame_len <= n_fft and hop <= 1024 and rows <= 65535):
+    if not 0 < frame_len <= n_fft:
         raise ValueError(f"istft kernel: unsupported shape {tuple(spec.shape)}"
                          f" with frame_len {frame_len}")
+    if frame_len != 2 * hop or hop > MAX_HOP:
+        istft.plain_routes += 1
+        return istft_plain(spec, frame_len, hop)
     ri = torch.view_as_real(spec)  # (rows, T, bins, 2) float32 view
     synth = _synthesis_interleaved(frame_len, n_fft, spec.device)
     env = _envelope_recip(frame_len, hop, num_frames, spec.device)
     out = torch.empty((rows, (num_frames + 1) * hop), dtype=torch.float32,
                       device=spec.device)
     lib = _build.load_library()
-    err = lib.css_istft(
-        ri.data_ptr(), synth.data_ptr(), env.data_ptr(), out.data_ptr(),
-        rows, num_frames, 2 * bins, hop, spec.device.index or 0,
-        torch.cuda.current_stream(spec.device).cuda_stream)
-    _build.check(err, "istft")
-    istft.launches += 1
+    stream = torch.cuda.current_stream(spec.device).cuda_stream
+    for lo, hi in _build.split_rows(rows, MAX_ROWS):
+        err = lib.css_istft(
+            ri[lo].data_ptr(), synth.data_ptr(), env.data_ptr(),
+            out[lo].data_ptr(), hi - lo, num_frames, 2 * bins, hop,
+            spec.device.index or 0, stream)
+        _build.check(err, "istft")
+        istft.launches += 1
     return out
 
 
 istft.launches = 0
+istft.plain_routes = 0

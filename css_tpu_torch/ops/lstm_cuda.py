@@ -8,33 +8,113 @@ W_hh (h, 4h), gate order i, f, g, o, ``reverse`` running time backward.
 The function ported is the TPU kernel's, which is what the BLSTM's eval
 path ran on the TPU: gates and the cell state c in float32, h rounded to
 the input dtype every step, the output in the input dtype; bf16 products
-summed in float32, float32 products in full float32. (The JAX package's
+summed in float32, float32 products to ~21 of float32's 24 bits (3xTF32
+on the tensor cores, never an operand rounded to TF32 alone). (The JAX
+package's
 ``lstm_scan`` in bf16, its CPU path, keeps c in bf16 instead.) On the
 main path it runs every (layer, direction) of the BLSTM
 (``models/blstm.py``): 6 launches per separator batch at full width.
 
 What bounds the function on the H100: operations — at the main shape
-(32, 150, 512) float32, the recurrent products are 10.07 GFLOP, 0.150 ms
-at the 67 TFLOP/s FP32 peak, against 53 MB of bytes (0.016 ms); the 149
-dependent steps add a latency floor that the bound does not count. The
-kernel is persistent and cooperative: one launch runs all T steps, each
-block keeps its slice of W_hh in shared memory and its cells' c in
-registers, and a grid-wide barrier separates the steps; see the source.
+(32, 150, 512) float32, the recurrent products are 10.07 GFLOP, 0.061 ms
+at 3xTF32's 165 TFLOP/s (a third of the 495 TFLOP/s TF32 peak; 0.150 ms
+at the 67 TFLOP/s FP32 peak of the CUDA cores), against 53 MB of bytes
+(0.016 ms); the 149 dependent steps add a latency floor that the bound
+does not count. The kernel is persistent: one launch of thread-block
+clusters runs all T steps, each block keeps its slice of W_hh in shared
+memory and its cells' c in registers, each cluster reads h_{t-1} from L2
+once and multicasts it to its blocks, the product runs on the tensor
+cores (mma.sync), and an arrival counter is the grid barrier between
+steps; see the source.
 
-``lstm_fused(xw, w_hh, hidden)`` on CPU tensors returns the plain version;
-on CUDA tensors it launches the kernel or raises (no fallback, and no
-shape gate that routes elsewhere). ``lstm_fused.launches`` counts kernel
-launches.
+The launch geometry is fixed for the H100: at most MAX_BLOCKS blocks in
+clusters of 8, one block per SM (5 units a block at hidden 512, 9 at
+1024). ``lstm_fused(xw, w_hh, hidden)`` on CPU tensors returns the plain
+version. On CUDA tensors it launches the kernel, or raises, except on one
+route, decided from the hidden size and dtype alone before any launch and
+counted in ``lstm_fused.plain_routes``: **a hidden size whose W_hh slice
+does not fit in a block's shared memory** (``lstm_plan`` returns None:
+from 1193 units in float32 and 1441 in bf16) runs the plain version on
+the card, as the reference runs shapes its kernel does not tile on XLA.
+A card that cannot hold all of a plan's clusters at once raises a
+ValueError that names the shape (the kernel's barrier would wait for a
+cluster that never starts). A batch above ``MAX_BATCH`` rows is split
+across launches (batch entries are independent, so this is exact).
+``lstm_fused.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
 from css_tpu_torch.ops import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
-SHAPE_REFUSED = -1  # css_lstm's return for a shape the kernel does not take
+SHAPE_REFUSED = -1  # css_lstm's return for a plan the kernel does not take
+NOT_RESIDENT = -2  # css_lstm's return when the clusters cannot all run
+
+# the kernel's fixed geometry (csrc/lstm.cu)
+WARPS = 8  # warps per block (256 threads), each a share of the k steps
+MAX_BATCH = 32  # rows per launch: two 16-row mma tiles
+MAX_COLS = 48  # gate columns per block (12 units): six 8-column tiles
+CLUSTER = 8  # blocks per cluster
+# 15 clusters of 8 at one block per SM: what cudaOccupancyMaxActiveClusters
+# reports on the H100 SXM (a cluster lies within one GPC, so some of the
+# 132 SMs stay out); the kernel's host code checks it before a launch
+MAX_BLOCKS = 120
+# shared memory a block can opt into on the H100 and H200 (227 KB)
+SMEM_OPTIN = 232448
+
+
+class LstmPlan(NamedTuple):
+    """One launch's layout: ``units`` hidden units per block over
+    ``blocks`` blocks (a whole number of clusters); W_hh's slice in rows of
+    ``wstride`` columns (8 or 24 mod 32 words: conflict-free mma fragment
+    reads); h padded to ``hpad`` (a whole mma k step) and staged
+    in chunks of ``chunk`` columns into shared-memory rows ``hstride``
+    elements apart (16 mod 128 bytes: conflict-free); ``smem`` bytes of
+    shared memory for MAX_BATCH rows."""
+    units: int
+    blocks: int
+    hpad: int
+    wstride: int
+    chunk: int
+    hstride: int
+    smem: int
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def lstm_plan(hidden: int, elem: int) -> Optional[LstmPlan]:
+    """The kernel's layout for ``hidden`` units (``elem`` bytes a value: 4
+    float32, 2 bf16) over at most MAX_BLOCKS blocks in clusters of
+    CLUSTER, or None when a block's W_hh slice does not fit (more than
+    MAX_COLS gate columns, or no room left beside it in SMEM_OPTIN bytes
+    for the partial products and a 128-byte chunk of h): the plain route.
+    A batch above MAX_BATCH is split across launches by the wrapper."""
+    units = -(-hidden // MAX_BLOCKS)
+    blocks = _round_up(-(-hidden // units), CLUSTER)
+    npad = _round_up(4 * units, 8)
+    if npad > MAX_COLS:
+        return None
+    wstride = npad if npad % 32 in (8, 24) else npad + 8
+    hpad = _round_up(hidden, 32 // elem)  # an mma k step: 8 or 16
+    per_row = 128 // elem  # elements of 128 bytes
+    pad = 16 // elem  # the 16 bytes that put rows in distinct banks
+    room = SMEM_OPTIN - hpad * wstride * elem - 16
+    part = WARPS * MAX_BATCH * npad * 4
+    cap = (room // (MAX_BATCH * elem) - pad) // per_row * per_row
+    if room < part or cap < per_row:
+        return None
+    chunk = min(cap, hpad)
+    hstride = _round_up(chunk, per_row) + pad
+    smem = (hpad * wstride * elem + 16
+            + max(MAX_BATCH * hstride * elem, part))
+    return LstmPlan(units, blocks, hpad, wstride, chunk, hstride, smem)
 
 
 def lstm_plain(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
@@ -73,30 +153,79 @@ def _check(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> None:
 
 
 def lstm_fused(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
-               reverse: bool = False) -> torch.Tensor:
+               reverse: bool = False,
+               phases: Optional[torch.Tensor] = None) -> torch.Tensor:
     """xw (B, T, 4h) input projections plus biases, w_hh (h, 4h) ->
-    hs (B, T, h) in xw's dtype (float32 or bfloat16)."""
+    hs (B, T, h) in xw's dtype (float32 or bfloat16).
+
+    ``phases``, for measurement only: a CUDA int64 tensor (blocks, 4) that
+    the kernel fills with each block's clock64() cycles of barrier wait,
+    staging, product, and the rest (partial sums, gates, stores, arrival)
+    over steps 1..T-1 (one launch only)."""
     if xw.device.type == "cpu":
         return lstm_plain(xw, w_hh, hidden, reverse)
     _check(xw, w_hh, hidden)
     if xw.device.type != "cuda":
         raise ValueError(f"lstm_fused: unsupported device {xw.device}")
     b, t, _ = xw.shape
+    plan = lstm_plan(hidden, xw.element_size())
+    if plan is None:
+        lstm_fused.plain_routes += 1
+        return lstm_plain(xw, w_hh, hidden, reverse)
     out = torch.empty((b, t, hidden), dtype=xw.dtype, device=xw.device)
+    if b == 0 or t == 0:
+        return out
+    parts = _build.split_rows(b, MAX_BATCH)
+    if phases is not None and (len(parts) != 1 or phases.dtype != torch.int64
+                               or phases.shape != (plan.blocks, 4)):
+        raise ValueError(f"lstm phases: one launch and an int64 "
+                         f"({plan.blocks}, 4) buffer")
+    state = torch.zeros((2, MAX_BATCH, plan.hpad), dtype=xw.dtype,
+                        device=xw.device)
+    counters = torch.zeros(len(parts), dtype=torch.int32, device=xw.device)
     lib = _build.load_library()
-    err = lib.css_lstm(
-        xw.data_ptr(), w_hh.data_ptr(), out.data_ptr(), b, t, hidden,
-        int(reverse), int(xw.dtype == torch.bfloat16), xw.device.index or 0,
-        torch.cuda.current_stream(xw.device).cuda_stream)
-    if err == SHAPE_REFUSED:
-        raise ValueError(
-            f"lstm kernel: batch {b} with hidden {hidden} does not fit "
-            f"(at most 256 product tiles of 4 rows x one unit per block, and "
-            f"W_hh's slice in shared memory)")
-    _build.check(err, "lstm_fused")
-    if b and t:
+    stream = torch.cuda.current_stream(xw.device).cuda_stream
+    for i, (lo, hi) in enumerate(parts):
+        err = lib.css_lstm(
+            xw[lo].data_ptr(), w_hh.data_ptr(), out[lo].data_ptr(),
+            state.data_ptr(), counters[i].data_ptr(),
+            None if phases is None else phases.data_ptr(), hi - lo, t,
+            hidden, plan.hpad, plan.units, plan.wstride, plan.chunk,
+            plan.hstride, plan.blocks, int(reverse),
+            int(xw.dtype == torch.bfloat16), xw.device.index or 0, stream)
+        if err == SHAPE_REFUSED:
+            raise ValueError(f"lstm kernel: xw {tuple(xw.shape)} (batch "
+                             f"{hi - lo} a launch), hidden {hidden} "
+                             f"({xw.dtype}): the plan {plan} does not fit "
+                             f"this card")
+        if err == NOT_RESIDENT:
+            raise ValueError(f"lstm kernel: xw {tuple(xw.shape)} (batch "
+                             f"{hi - lo} a launch), hidden {hidden} "
+                             f"({xw.dtype}): {plan.blocks} blocks in clusters "
+                             f"of {CLUSTER} cannot all be resident at once "
+                             f"on this card")
+        _build.check(err, "lstm_fused")
         lstm_fused.launches += 1
     return out
 
 
+def phase_split(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
+                reverse: bool = False) -> dict:
+    """Mean clock64() cycles per step of K2's phases, over the blocks and
+    steps 1..T-1 of one launch: barrier wait, staging of h_{t-1}, product,
+    and the rest (partial sums, gates, stores, arrival). For measurement;
+    the launch is counted."""
+    t = xw.shape[1]
+    plan = lstm_plan(hidden, xw.element_size())
+    if plan is None:
+        raise ValueError(f"lstm phases: hidden {hidden} ({xw.dtype}) takes "
+                         f"the plain route, which records no phases")
+    phases = torch.zeros((plan.blocks, 4), dtype=torch.int64,
+                         device=xw.device)
+    lstm_fused(xw, w_hh, hidden, reverse, phases=phases)
+    mean = (phases.double().mean(dim=0) / max(t - 1, 1)).tolist()
+    return dict(zip(("wait", "stage", "product", "gates"), mean))
+
+
 lstm_fused.launches = 0
+lstm_fused.plain_routes = 0

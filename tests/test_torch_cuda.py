@@ -11,7 +11,10 @@ another order: 2e-4 absolute, 1e-4 relative (the tolerance of
 tests/test_istft_pallas.py for the TPU kernel). K2 in bfloat16: h is
 rounded to bf16 every step in both, so a value near a rounding boundary
 can land one bf16 step (up to 2^-8 on |h| < 1) the other way and carry
-into later steps: 3e-2 absolute (about 8 such steps).
+into later steps: 3e-2 absolute (about 8 such steps). K2 in float32 is
+held also to 5e-6 absolute (chip_smoke.py's LSTM_F32_MAX_ERR): its 3xTF32
+product keeps ~21 of float32's 24 bits, and a single-TF32 product of the
+same function fails that bound (test_lstm_f32_bound_catches_single_tf32).
 """
 
 import numpy as np
@@ -24,6 +27,7 @@ from css_tpu_torch.ops import stft as stft_ops
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 2e-4, 1e-4
 LSTM_BF16_ATOL = 3e-2
+LSTM_F32_MAX_ERR = 5e-6
 
 
 @pytest.fixture
@@ -46,7 +50,8 @@ def _signal(shape, seed, dev):
     return torch.as_tensor(x.astype(np.float32), device=dev)
 
 
-@pytest.mark.parametrize("rows,n", [(1, 512), (3, 5000), (32, 38656)])
+@pytest.mark.parametrize("rows,n", [(1, 512), (3, 5000), (7, 2816),
+                                    (32, 38400), (32, 38656)])
 def test_stft_mag_kernel_matches_plain(card, rows, n):
     x = _signal((rows, n), rows, card)
     before = stft_mag_cuda.stft_mag.launches
@@ -55,6 +60,21 @@ def test_stft_mag_kernel_matches_plain(card, rows, n):
     assert stft_mag_cuda.stft_mag.launches == before + 1
     want = stft_mag_cuda.stft_mag_plain(x)
     assert got.shape == want.shape == (rows, (n - 512) // 256 + 1, 257)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("frame,hop", [(4, 2), (64, 32), (400, 200),
+                                       (1024, 512), (2048, 1024)])
+def test_stft_mag_kernel_other_framings(card, frame, hop):
+    """Every FFT length the kernel takes, and a frame shorter than its FFT
+    (400 in 512: the frame is zero-padded)."""
+    x = _signal((3, 9 * hop + frame), frame, card)
+    before = stft_mag_cuda.stft_mag.launches
+    got = stft_mag_cuda.stft_mag(x, frame, hop)
+    torch.cuda.synchronize()
+    assert stft_mag_cuda.stft_mag.launches == before + 1
+    want = stft_mag_cuda.stft_mag_plain(x, frame, hop)
+    assert got.shape == want.shape == (3, 10, stft_ops.num_fft_bins(frame))
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
@@ -72,20 +92,52 @@ def test_istft_kernel_matches_plain(card, rows, n):
 
 
 def test_kernels_refuse_what_they_do_not_take(card):
+    """Wrong layouts and types raise; a framing other than frame_len ==
+    2*hop takes the plain route, counted, with no launch."""
     x = _signal((4, 6000), 0, card)
     with pytest.raises(ValueError, match="contiguous"):
         stft_mag_cuda.stft_mag(x[:, ::2])
     with pytest.raises(TypeError):
         stft_mag_cuda.stft_mag(x.double())
-    with pytest.raises(ValueError, match="2\\*hop"):
-        stft_mag_cuda.stft_mag(x, 512, 128)
+    launches, routes = (stft_mag_cuda.stft_mag.launches,
+                        stft_mag_cuda.stft_mag.plain_routes)
+    got = stft_mag_cuda.stft_mag(x, 512, 128)
+    assert stft_mag_cuda.stft_mag.launches == launches
+    assert stft_mag_cuda.stft_mag.plain_routes == routes + 1
+    torch.testing.assert_close(got, stft_mag_cuda.stft_mag_plain(x, 512, 128),
+                               atol=0, rtol=0)
     spec = stft_ops.stft(x)
     with pytest.raises(ValueError, match="contiguous"):
         istft_cuda.istft(spec.transpose(0, 1))
     with pytest.raises(TypeError):
         istft_cuda.istft(spec.to(torch.complex128))
-    with pytest.raises(ValueError, match="2\\*hop"):
-        istft_cuda.istft(spec, 512, 128)
+    launches, routes = istft_cuda.istft.launches, istft_cuda.istft.plain_routes
+    got = istft_cuda.istft(spec, 512, 128)
+    assert istft_cuda.istft.launches == launches
+    assert istft_cuda.istft.plain_routes == routes + 1
+    torch.testing.assert_close(got, istft_cuda.istft_plain(spec, 512, 128),
+                               atol=0, rtol=0)
+
+
+def test_kernels_split_rows_beyond_one_launch(card):
+    """70000 rows, more than gridDim.y takes: two launches, exact."""
+    rows = 70000
+    x = _signal((rows, 768), 1, card)
+    before = stft_mag_cuda.stft_mag.launches
+    got = stft_mag_cuda.stft_mag(x)
+    torch.cuda.synchronize()
+    assert stft_mag_cuda.stft_mag.launches == before + 2
+    torch.testing.assert_close(got, stft_mag_cuda.stft_mag_plain(x),
+                               atol=ATOL, rtol=RTOL)
+    spec = stft_ops.stft(x)
+    spec = (spec * torch.rand(spec.shape, device=card)).contiguous()
+    before = istft_cuda.istft.launches
+    got = istft_cuda.istft(spec)
+    torch.cuda.synchronize()
+    assert istft_cuda.istft.launches == before + 2
+    assert got.shape == (rows, 3 * 256)
+    torch.testing.assert_close(got, istft_cuda.istft_plain(spec),
+                               atol=ATOL, rtol=RTOL)
 
 
 def _lstm_inputs(b, t, h, dtype, seed, dev):
@@ -113,12 +165,77 @@ def test_lstm_kernel_matches_plain(card, b, t, h, dtype, reverse):
     assert got.shape == want.shape == (b, t, h) and got.dtype == dtype
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+        assert float((got - want).abs().max()) <= LSTM_F32_MAX_ERR
     else:
         torch.testing.assert_close(got.float(), want.float(),
                                    atol=LSTM_BF16_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h,n_launch", [(300, 20, 512, 10),
+                                            (300, 12, 1024, 10)])
+def test_lstm_kernel_splits_the_batch(card, b, t, h, n_launch, dtype,
+                                      reverse):
+    """A batch beyond one launch's limit (32 rows: two 16-row mma tiles)
+    is split across launches, exactly."""
+    xw, w_hh = _lstm_inputs(b, t, h, dtype, b + h, card)
+    before = lstm_cuda.lstm_fused.launches
+    got = lstm_cuda.lstm_fused(xw, w_hh, h, reverse=reverse)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_fused.launches == before + n_launch
+    want = lstm_cuda.lstm_plain(xw, w_hh, h, reverse=reverse)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+        assert float((got - want).abs().max()) <= LSTM_F32_MAX_ERR
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=LSTM_BF16_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("h", [512, 1024])
+def test_lstm_f32_bound_catches_single_tf32(card, h):
+    """The control for the tight float32 bound: the plain version with its
+    product in single TF32 (torch's TF32 matmul) misses it."""
+    xw, w_hh = _lstm_inputs(32, 150, h, torch.float32, 32 + h, card)
+    want = lstm_cuda.lstm_plain(xw, w_hh, h)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    ctrl = lstm_cuda.lstm_plain(xw, w_hh, h)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert float((ctrl - want).abs().max()) > LSTM_F32_MAX_ERR
+
+
+def test_lstm_kernel_refuses_a_grid_that_cannot_all_be_resident(
+        card, monkeypatch):
+    """A plan with more clusters than the card holds at once raises and
+    names the shape; it never falls back to the plain version. 128 blocks
+    at hidden 1024 in float32 (8 units, one block per SM) are 16 clusters
+    of 8, one more than the H100 holds."""
+    monkeypatch.setattr(lstm_cuda, "MAX_BLOCKS", 128)
+    assert lstm_cuda.lstm_plan(1024, 4).blocks == 128
+    xw, w_hh = _lstm_inputs(4, 3, 1024, torch.float32, 0, card)
+    launches, routes = (lstm_cuda.lstm_fused.launches,
+                        lstm_cuda.lstm_fused.plain_routes)
+    with pytest.raises(ValueError, match=r"\(4, 3, 4096\).*resident"):
+        lstm_cuda.lstm_fused(xw, w_hh, 1024)
+    assert lstm_cuda.lstm_fused.launches == launches
+    assert lstm_cuda.lstm_fused.plain_routes == routes
+
+
+def test_lstm_phase_split(card):
+    """The optional clock64() phase record: positive cycles per step in
+    each phase, and the launch's result unchanged."""
+    xw, w_hh = _lstm_inputs(32, 20, 512, torch.float32, 3, card)
+    split = lstm_cuda.phase_split(xw, w_hh, 512)
+    assert set(split) == {"wait", "stage", "product", "gates"}
+    assert all(v > 0 for v in split.values())
+
+
 def test_lstm_kernel_refuses_what_it_does_not_take(card):
+    """Wrong layouts and types raise; batch 129 at hidden 1024 is split
+    into five launches; a hidden size whose W_hh slice does not fit in
+    shared memory takes the plain route, counted, with no launch."""
     xw, w_hh = _lstm_inputs(4, 6, 64, torch.float32, 0, card)
     with pytest.raises(ValueError, match="contiguous"):
         lstm_cuda.lstm_fused(xw.transpose(0, 1), w_hh, 64)
@@ -126,6 +243,17 @@ def test_lstm_kernel_refuses_what_it_does_not_take(card):
         lstm_cuda.lstm_fused(xw.half(), w_hh.half(), 64)
     with pytest.raises(ValueError, match="4h"):
         lstm_cuda.lstm_fused(xw, w_hh, 32)
-    with pytest.raises(ValueError, match="does not fit"):
-        big, w_big = _lstm_inputs(129, 2, 1024, torch.float32, 0, card)
-        lstm_cuda.lstm_fused(big, w_big, 1024)
+    big, w_big = _lstm_inputs(129, 2, 1024, torch.float32, 0, card)
+    before = lstm_cuda.lstm_fused.launches
+    got = lstm_cuda.lstm_fused(big, w_big, 1024)
+    assert lstm_cuda.lstm_fused.launches == before + 5
+    torch.testing.assert_close(got, lstm_cuda.lstm_plain(big, w_big, 1024),
+                               atol=ATOL, rtol=RTOL)
+    wide, w_wide = _lstm_inputs(2, 3, 1536, torch.float32, 0, card)
+    launches, routes = (lstm_cuda.lstm_fused.launches,
+                        lstm_cuda.lstm_fused.plain_routes)
+    got = lstm_cuda.lstm_fused(wide, w_wide, 1536)
+    assert lstm_cuda.lstm_fused.launches == launches
+    assert lstm_cuda.lstm_fused.plain_routes == routes + 1
+    torch.testing.assert_close(got, lstm_cuda.lstm_plain(wide, w_wide, 1536),
+                               atol=0, rtol=0)

@@ -32,7 +32,8 @@ def test_resolve_device(no_card):
     lambda **kw: Separator(torch.nn.Identity(), **kw),
     lambda **kw: Stitcher(**kw),
     lambda **kw: Beamformer("masking", **kw),
-    lambda **kw: CssPipeline(torch.nn.Identity(), {}, **kw),
+    lambda **kw: CssPipeline(torch.nn.Identity(),
+                             {"beamforming": {"type": "masking"}}, **kw),
 ], ids=["Separator", "Stitcher", "Beamformer", "CssPipeline"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card, make):
     with pytest.raises(RuntimeError, match="cuda"):

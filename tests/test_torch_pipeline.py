@@ -80,6 +80,47 @@ def test_pipeline_refuses_unported_options(small_model):
             CssPipeline(tm, config, device="cpu")
 
 
+def test_multichannel_recording_separates_channel_0(small_model, session):
+    """A (C, T) recording under the 1ch config: the reference separates it
+    from channel 0 (features and masking beamformer read channel 0 only);
+    the port must give the same streams."""
+    jm, v = small_model
+    rng = np.random.default_rng(7)
+    others = 0.1 * rng.standard_normal((2, session.shape[0]))
+    rec = np.concatenate([session[None], others.astype(np.float32)])
+    want = JaxPipeline(jm, v, _config()).process(rec)
+    tm = Conformer.build_model(CONF)
+    tm.load_state_dict(params_from_jax(v["params"], v["batch_stats"]))
+    got = CssPipeline(tm, _config(), device="cpu").process(rec)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == session.shape
+        np.testing.assert_allclose(g, w, atol=1e-4)
+
+
+def test_default_beamformer_is_the_references(small_model, session):
+    """Without beamforming.type the reference runs Souden MVDR; the port
+    takes the same default, which raises until the 7ch slice lands."""
+    jm, v = small_model
+    config = _config()
+    del config["beamforming"]["type"]
+    short = session[:48000]
+    want = JaxPipeline(jm, v, config).process(short)
+    assert len(want) == 2 and all(np.isfinite(w).all() for w in want)
+    tm = Conformer.build_model(CONF)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        CssPipeline(tm, config, device="cpu")
+
+
+def test_pipeline_refuses_ipd_features(small_model):
+    """IPD features read every channel: the 7ch slice (item 6)."""
+    tm = Conformer.build_model(CONF)
+    config = _config()
+    config["separation"]["ipd"] = "1,0;2,0"
+    with pytest.raises(NotImplementedError, match="item 6"):
+        CssPipeline(tm, config, device="cpu")
+
+
 def test_separate_cli_on_cpu(small_model, session, tmp_path):
     from css_tpu_torch.cli import separate
 
