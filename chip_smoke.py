@@ -332,6 +332,22 @@ def stft_input(torch, dev):
     return torch.as_tensor((x * 0.1).astype(np.float32), device=dev)
 
 
+def istft_input(torch, dev):
+    """K1's input on the main path: every masked stream of the session, 2
+    streams x n_windows windows, here the STFT of noise of standard
+    deviation 0.1 times a mask uniform in [0, 1), from SEED + 1."""
+    from css_tpu_torch.ops import stft as stft_ops
+
+    m = main_shapes()
+    rng = np.random.default_rng(SEED + 1)
+    rows, bins = 2 * m["n_windows"], m["frame"] // 2 + 1
+    sig = torch.as_tensor(rng.standard_normal((rows, m["win"]))
+                          .astype(np.float32) * 0.1, device=dev)
+    mask = torch.as_tensor(rng.uniform(0.0, 1.0, (rows, m["n_frames"], bins))
+                           .astype(np.float32), device=dev)
+    return (stft_ops.stft(sig, m["frame"], m["hop"]) * mask).contiguous()
+
+
 def lstm_layer_inputs(torch, dev, hidden: int):
     """K2's inputs on one LSTM direction of a separator batch, at the
     BLSTM's hidden 512 a direction (input 1024) or the causal BLSTM's 1024,
@@ -373,31 +389,35 @@ def counted(kernel, n: int, label: str, fn):
     return out
 
 
-def stage_seconds(torch, pipe, mix, dev):
-    """Per-stage host seconds of one call, each stage ending in a
-    synchronize."""
+def stage_seconds(torch, pipe, mix, dev, reps: int = 5):
+    """Per-stage host seconds of a call, each stage ending in a
+    synchronize: the median of each stage over reps warm calls, as one
+    call's stage times move with the host clock's noise."""
     from css_tpu_torch.executor.windowing import pad_for_windows
 
     wav = torch.as_tensor(mix, device=dev)
     wav = pad_for_windows(wav, pipe.separator.win, pipe.separator.hop)
-    stages = {}
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    masks, mags = pipe.separator.separate(wav)
-    torch.cuda.synchronize()
-    stages["separator"] = time.perf_counter() - t
-    t = time.perf_counter()
-    stitched = pipe.stitcher(masks, mags)
-    torch.cuda.synchronize()
-    stages["stitcher"] = time.perf_counter() - t
-    t = time.perf_counter()
-    outs = pipe.beamformer.continuous_process(wav, stitched)
-    torch.cuda.synchronize()
-    stages["beamformer"] = time.perf_counter() - t
-    t = time.perf_counter()
-    [o.cpu() for o in outs]
-    stages["to_host"] = time.perf_counter() - t
-    return stages
+    samples = []
+    for _ in range(reps):
+        stages = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        masks, mags = pipe.separator.separate(wav)
+        torch.cuda.synchronize()
+        stages["separator"] = time.perf_counter() - t
+        t = time.perf_counter()
+        stitched = pipe.stitcher(masks, mags)
+        torch.cuda.synchronize()
+        stages["stitcher"] = time.perf_counter() - t
+        t = time.perf_counter()
+        outs = pipe.beamformer.continuous_process(wav, stitched)
+        torch.cuda.synchronize()
+        stages["beamformer"] = time.perf_counter() - t
+        t = time.perf_counter()
+        [o.cpu() for o in outs]
+        stages["to_host"] = time.perf_counter() - t
+        samples.append(stages)
+    return {k: float(np.median([s[k] for s in samples])) for k in samples[0]}
 
 
 def separator_masks(torch, pipe, mix, dev):
@@ -420,7 +440,6 @@ def main() -> int:
     from css_tpu_torch.executor.pipeline import CssPipeline
     from css_tpu_torch.models import blstm
     from css_tpu_torch.ops import _build, istft_cuda, lstm_cuda, stft_mag_cuda
-    from css_tpu_torch.ops import stft as stft_ops
 
     # ---------------------------------------------------------- 1. device
     t0 = time.perf_counter()
@@ -448,7 +467,7 @@ def main() -> int:
     shapes = main_shapes()
     frame, hop = shapes["frame"], shapes["hop"]
     sr = CONFIG["sampling_rate"]
-    win, batch = shapes["win"], shapes["batch"]
+    batch = shapes["batch"]
     # windows that cover the session (73 for 60 s at the 0.8 s hop)
     n_windows = shapes["n_windows"]
     bins = frame // 2 + 1
@@ -493,13 +512,8 @@ def main() -> int:
         "device_ms": dev3, "library_device_ms": lib_dev3})
 
     # K1 on every masked stream of a 60 s recording: 2 x 73 rows
-    rng = np.random.default_rng(SEED + 1)
-    rows = 2 * n_windows
-    sig = torch.as_tensor(rng.standard_normal((rows, win)).astype(np.float32)
-                          * 0.1, device=dev)
-    mask = torch.as_tensor(rng.uniform(0.0, 1.0, (rows, n_frames, bins))
-                           .astype(np.float32), device=dev)
-    spec = (stft_ops.stft(sig, frame, hop) * mask).contiguous()
+    spec = istft_input(torch, dev)
+    rows = spec.shape[0]
     got = counted(istft_cuda.istft, 1, "istft",
                   lambda: istft_cuda.istft(spec, frame, hop))
     want = istft_cuda.istft_plain(spec, frame, hop)
@@ -514,13 +528,12 @@ def main() -> int:
     b1, by1 = bound_ms(
         rows * n_frames * (frame + rfft_flops(frame)) + 2.0 * got.numel(),
         8.0 * spec.numel() + 4.0 * got.numel())
-    dft1, _ = bound_ms(2.0 * rows * n_frames * 2 * bins * frame, 0.0)
     # torch.istft(center=False) refuses the periodic Hann window (its
     # envelope is 0 at the first sample: the NOLA check fails), so K1 has
     # no one-call library counterpart
     log(f"K1 istft {tuple(spec.shape)}: max_abs_err {err1:.3e}; kernel_ms "
         f"{ms1:.4f} plain_ms {plain1:.4f} bound_ms {b1:.4f} ({by1}); "
-        f"dft_matmul_flops_ms {dft1:.4f}; device time {dev1} ms")
+        f"device time {dev1} ms")
     results.append({
         "name": "istft", "route": "cuda",
         "source": "css_tpu_torch/csrc/istft.cu",
@@ -528,7 +541,7 @@ def main() -> int:
         "launches": None, "max_abs_err": err1, "ms": ms1, "plain_ms": plain1,
         "bound_ms": b1, "bound_by": by1, "library_ms": None,
         "device_ms": dev1})
-    del x, sig, mask, spec, got, want
+    del x, spec, got, want
 
     # K2 on one LSTM direction of a separator batch: the BLSTM's hidden 512
     # per direction and the causal BLSTM's hidden 1024, each in float32 and

@@ -40,7 +40,7 @@ _I = ctypes.c_int
 # C entry point -> argtypes (every pointer and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints)
 SIGNATURES = {
-    "css_istft": [_P] * 4 + [_I] * 5 + [_P],
+    "css_istft": [_P] * 5 + [_I] * 5 + [_P],
     "css_stft_mag": [_P] * 4 + [_I] * 7 + [_P],
     "css_lstm": [_P] * 6 + [_I] * 12 + [_P],
 }

@@ -53,20 +53,28 @@ def takes_kernel(frame_len: int, hop: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _tables(frame_len: int, device: torch.device):
-    """The kernel's twiddles and window, computed in float64 and stored in
-    float32. Twiddles W^j = e^{-2 pi i j / n_fft} as (2M - 1, 2) [re, im],
-    M = n_fft/2: W^k for k < M (the split step), then for each FFT stage
-    s < log2(M) the 2^s twiddles W^{pos * M / 2^s}, pos < 2^s, side by
-    side. The window: the periodic Hann window of frame_len."""
-    n_fft = stft_ops.num_fft_bins(frame_len) * 2 - 2
+def twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
+    """The FFT kernels' twiddles (K3, and K1 conjugates them), computed in
+    float64 and stored in float32: W^j = e^{-2 pi i j / n_fft} as
+    (2M - 1, 2) [re, im], M = n_fft/2: W^k for k < M (the split step),
+    then for each FFT stage s < log2(M) the 2^s twiddles
+    W^{pos * M / 2^s}, pos < 2^s, side by side."""
     m = n_fft // 2
     idx = [np.arange(m)] + [np.arange(1 << s) * (m >> s)
                             for s in range(m.bit_length() - 1)]
     ang = -2.0 * math.pi * np.concatenate(idx) / n_fft
     twid = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    return torch.as_tensor(twid, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(frame_len: int, device: torch.device):
+    """The kernel's twiddles (``twiddles``) for frame_len's FFT length and
+    its window, the periodic Hann window of frame_len computed in float64
+    and stored in float32."""
+    n_fft = stft_ops.num_fft_bins(frame_len) * 2 - 2
     window = stft_ops.hann_window(frame_len, dtype=np.float64)
-    return (torch.as_tensor(twid, device=device),
+    return (twiddles(n_fft, device),
             torch.as_tensor(window.astype(np.float32), device=device))
 
 

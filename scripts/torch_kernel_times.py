@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Card times of the PyTorch port's K3 (STFT magnitude) and K2 (LSTM
-recurrence) kernels at their main-path shapes, taken from the
-``css_tpu_torch`` package of a given checkout, so that two versions can be
-compared in one card run, in turns (a, b, b, a):
+"""Card times of the PyTorch port's K3 (STFT magnitude), K1 (masked
+iSTFT) and K2 (LSTM recurrence) kernels at their main-path shapes, taken
+from the ``css_tpu_torch`` package of a given checkout, so that two
+versions can be compared in one card run, in turns (a, b, b, a):
 
     python3 scripts/torch_kernel_times.py --root /path/to/other --label a
     python3 scripts/torch_kernel_times.py --root . --label b
 
 The inputs, the shapes and the timer are chip_smoke.py's (of this
-checkout: ``stft_input``, ``lstm_layer_inputs``, ``time_ms``, a median of
-30 CUDA-event times after 3 warm-ups), so the times are those of its
-kernel phase. Each case is checked against its plain version on the same
-inputs (max abs error printed). K3's yardstick, ``torch.stft(...).abs()``,
-is timed beside it; K2's phase split (clock64() cycles per step) where the
-version records one. TF32 off. Prints one JSON line with the label, the
-card's name and power limit (nvidia-smi), and per case its shape, kernel
-ms and error. Needs a CUDA card; exits 1 without one.
+checkout: ``stft_input``, ``istft_input``, ``lstm_layer_inputs``,
+``time_ms``, a median of 30 CUDA-event times after 3 warm-ups), so the
+times are those of its kernel phase. Each case is checked against its
+plain version on the same inputs (max abs error printed). K3's yardstick,
+``torch.stft(...).abs()``, is timed beside it; K1's device time
+(``device_ms``, torch.profiler) too; K2's phase split (clock64() cycles
+per step) where the version records one. TF32 off. Prints one JSON line
+with the label, the card's name and power limit (nvidia-smi), and per
+case its shape, kernel ms and error. Needs a CUDA card; exits 1 without
+one.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_times: no CUDA card", file=sys.stderr)
         return 1
-    from css_tpu_torch.ops import lstm_cuda, stft_mag_cuda
+    from css_tpu_torch.ops import istft_cuda, lstm_cuda, stft_mag_cuda
 
     cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -72,6 +74,16 @@ def main(argv=None) -> int:
         "library_ms": cs.time_ms(torch, lambda: torch.stft(
             x, frame, hop, window=hann, center=False,
             return_complex=True).abs())})
+
+    spec = cs.istft_input(torch, dev)
+    err = float((istft_cuda.istft(spec, frame, hop)
+                 - istft_cuda.istft_plain(spec, frame, hop)).abs().max())
+    cases.append({
+        "kernel": "istft", "shape": list(spec.shape), "max_abs_err": err,
+        "ms": cs.time_ms(torch, lambda: istft_cuda.istft(spec, frame, hop)),
+        "device_ms": cs.device_ms(torch, lambda: istft_cuda.istft(
+            spec, frame, hop))})
+    del spec
 
     for h, dtype, reverse in ((512, torch.float32, False),
                               (512, torch.float32, True),

@@ -91,6 +91,42 @@ def test_istft_kernel_matches_plain(card, rows, n):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("frame,hop", [(4, 2), (64, 32), (400, 200),
+                                       (1024, 512), (2048, 1024)])
+def test_istft_kernel_other_framings(card, frame, hop):
+    """Every FFT length the kernel takes, and a frame shorter than its FFT
+    (400 in 512: the irfft is cut to the frame)."""
+    spec = stft_ops.stft(_signal((3, 9 * hop + frame), frame, card), frame,
+                         hop)
+    spec = (spec * torch.rand(spec.shape, device=card)).contiguous()
+    before = istft_cuda.istft.launches
+    got = istft_cuda.istft(spec, frame, hop)
+    torch.cuda.synchronize()
+    assert istft_cuda.istft.launches == before + 1
+    want = istft_cuda.istft_plain(spec, frame, hop)
+    assert got.shape == want.shape == (3, 11 * hop)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("rows,frames", [(5, 19), (4, 1)])
+def test_istft_kernel_random_spectrum(card, rows, frames):
+    """A random complex spectrum with imaginary parts in the DC and Nyquist
+    bins, which the irfft ignores and the split step must too; and T = 1,
+    a recording of one frame (slot 0 and slot T only)."""
+    rng = np.random.default_rng(rows)
+    spec = (rng.standard_normal((rows, frames, 257))
+            + 1j * rng.standard_normal((rows, frames, 257))) * 0.1
+    spec = torch.as_tensor(spec.astype(np.complex64), device=card)
+    assert float(spec[..., [0, 256]].imag.abs().min()) > 0
+    before = istft_cuda.istft.launches
+    got = istft_cuda.istft(spec)
+    torch.cuda.synchronize()
+    assert istft_cuda.istft.launches == before + 1
+    want = istft_cuda.istft_plain(spec)
+    assert got.shape == want.shape == (rows, (frames + 1) * 256)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
 def test_kernels_refuse_what_they_do_not_take(card):
     """Wrong layouts and types raise; a framing other than frame_len ==
     2*hop takes the plain route, counted, with no launch."""
