@@ -7,7 +7,8 @@ Phases, each timed on its own line:
   1. device: the card, its name and power limit (nvidia-smi), and the
      build of every CUDA kernel from ``css_tpu_torch/csrc`` (nvcc, cold).
   2. kernels: each kernel against its plain PyTorch version on the card,
-     with TF32 off, at the main paths' shapes; kernel, plain and library
+     with TF32 off, at the main paths' shapes (K1 also through its
+     centered entry, at the 7ch path's shape); kernel, plain and library
      times (CUDA events, median of 30 after 3 warm-ups), and each kernel's
      device time without host overhead (torch.profiler). K2 (the LSTM
      recurrence) in float32 and bf16, forward and reverse, at the BLSTM's
@@ -30,11 +31,25 @@ Phases, each timed on its own line:
      (b) must match (p), and (a) must match (b) above an SI-SNR floor
      and a worst-segment SNR floor, which two stream-swapped copies of
      (b) must fail.
+     Then stream re-anchoring (``executor/reanchor.py``) once on (b)'s
+     streams: its swap count and host seconds.
   4. BLSTM path: a full-width BLSTM (hidden 1024, 3 layers) with random
      weights from a numpy seed through ``CssPipeline.process`` on the same
      session: float32 with the kernels, float32 on the plain versions, and
      bf16 with the kernels; the float32 runs must match on masks and
      streams, and bf16 must stay near float32 on the masks.
+  5. Conformer 7ch path: the committed 7ch checkpoint at full width and
+     depth under ``configs/infer_7ch.yaml`` (IPD features, DOA merge,
+     Souden MVDR) on the same two voices placed at two azimuths 120
+     degrees apart on the 7-mic array, with 0.003 sensor noise; runs (a),
+     (b) and (p) as on the Conformer path, with the same gates, and equal
+     DOA-merge kill counts in (b) and (p). The checkpoint must separate
+     the session: SI-SNRi of (b) against the sources at least
+     SI_SNRI_7CH_DB, and the merge may kill at most MAX_KILL_SHARE of the
+     windows. Printed: the stage seconds, the kill count, SI-SNRi, and the
+     card times of the beamformer's calls one by one (the centered STFT,
+     the SCM products, the batched 7x7 solves, apply, dedup, K1's centered
+     entry) and of the DOA projections.
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and last the result line ``{"ok": true, "device": {...}}``. Progress goes
 to stderr. Any failed check raises, and the exit code is then non-zero;
@@ -66,6 +81,34 @@ CONFIG = {
 CHECKPOINT = "checkpoints/h2ft_masksnr_best.mdl"
 SESSION_SEC = 60.0
 SEED = 20261017
+# configs/infer_7ch.yaml, as a dict; tests/test_torch_imports.py holds the
+# two equal
+CONFIG_7CH = {
+    "sampling_rate": 16000,
+    "separation": {"batch_size": 32, "eval_hop": 0.8, "eval_win": 2.4,
+                   "frame_length": 512, "frame_shift": 256,
+                   "ipd": "1,0;2,0;3,0;4,0;5,0;6,0", "merge": True,
+                   "merge_threshold": 16},
+    "stitching": {"eval_hop": 0.8, "eval_win": 2.4, "hop_size": 256,
+                  "n_fft": 512},
+    "beamforming": {"batch_size": 32, "type": "SoudenMVDRBeamformer",
+                    "hop_size": 256, "n_fft": 512, "eval_hop": 0.8,
+                    "proceed_margin": 2, "eval_win": 2.4,
+                    "wta_thresh": 0.0001},
+}
+CHECKPOINT_7CH = "checkpoints/s7_mse_best.mdl"
+# the two voices' azimuths on the 7-mic array, and the sensor noise (the
+# 7ch checkpoint's training sensor noise level). The checkpoint separates
+# these voices at 90/210 degrees (+13.1 dB SI-SNRi in float32 on the CPU)
+# but not with a voice near 30 degrees (-10.8 dB at 30/150).
+AZIMUTHS_7CH = (90.0, 210.0)
+SENSOR_NOISE = 0.003
+# the 7ch path's separation gates on (b): SI-SNRi of the float32 streams
+# against the voices at channel 0, and the share of windows whose weaker
+# stream the DOA merge may kill (a window with one voice is killed by
+# design; 13 of 73 on the CPU)
+SI_SNRI_7CH_DB = 6.0
+MAX_KILL_SHARE = 0.35
 
 # H100 SXM data sheet: FP32 on the CUDA cores (K1 and K3 run FP32 FMAs),
 # dense TF32 and bf16 on the tensor cores, and HBM3 bandwidth. Rates at
@@ -348,6 +391,36 @@ def istft_input(torch, dev):
     return (stft_ops.stft(sig, m["frame"], m["hop"]) * mask).contiguous()
 
 
+def istft_centered_input(torch, dev):
+    """K1's input on the 7ch path, through its centered entry: the
+    beamformed spectra of the session, 2 streams x n_windows windows of
+    n_frames + 2 centered frames, here the centered STFT of noise of
+    standard deviation 0.1 times a mask uniform in [0, 1), from SEED + 2."""
+    from css_tpu_torch.ops import stft as stft_ops
+
+    m = main_shapes()
+    rng = np.random.default_rng(SEED + 2)
+    rows, bins = 2 * m["n_windows"], m["frame"] // 2 + 1
+    sig = torch.as_tensor(rng.standard_normal((rows, m["win"]))
+                          .astype(np.float32) * 0.1, device=dev)
+    mask = torch.as_tensor(rng.uniform(0.0, 1.0, (rows, m["n_frames"] + 2,
+                                                  bins)).astype(np.float32),
+                           device=dev)
+    return (stft_ops.stft(sig, m["frame"], m["hop"], center=True)
+            * mask).contiguous()
+
+
+def session_7ch(srcs):
+    """The session's two voices placed at AZIMUTHS_7CH on the 7-mic array
+    (exact fractional delays as rFFT phase ramps), plus SENSOR_NOISE white
+    noise from SEED + 7: (7, T) float32. Channel 0 has no delay, so its
+    images of the voices are the voices themselves."""
+    from css_tpu_torch.data.spatial import spatialize
+
+    return spatialize(srcs, AZIMUTHS_7CH, noise_level=SENSOR_NOISE,
+                      rng=np.random.default_rng(SEED + 7))
+
+
 def lstm_layer_inputs(torch, dev, hidden: int):
     """K2's inputs on one LSTM direction of a separator batch, at the
     BLSTM's hidden 512 a direction (input 1024) or the causal BLSTM's 1024,
@@ -389,35 +462,98 @@ def counted(kernel, n: int, label: str, fn):
     return out
 
 
-def stage_seconds(torch, pipe, mix, dev, reps: int = 5):
+def stage_seconds(torch, pipe, rec, dev, reps: int = 5):
     """Per-stage host seconds of a call, each stage ending in a
     synchronize: the median of each stage over reps warm calls, as one
     call's stage times move with the host clock's noise."""
     from css_tpu_torch.executor.windowing import pad_for_windows
 
-    wav = torch.as_tensor(mix, device=dev)
+    wav = torch.as_tensor(rec, device=dev)
     wav = pad_for_windows(wav, pipe.separator.win, pipe.separator.hop)
     samples = []
     for _ in range(reps):
         stages = {}
         torch.cuda.synchronize()
-        t = time.perf_counter()
+        clock = time.perf_counter()
+
+        def mark(name):
+            nonlocal clock
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stages[name] = now - clock
+            clock = now
+
         masks, mags = pipe.separator.separate(wav)
-        torch.cuda.synchronize()
-        stages["separator"] = time.perf_counter() - t
-        t = time.perf_counter()
+        mark("separator")
         stitched = pipe.stitcher(masks, mags)
-        torch.cuda.synchronize()
-        stages["stitcher"] = time.perf_counter() - t
-        t = time.perf_counter()
+        mark("stitcher")
         outs = pipe.beamformer.continuous_process(wav, stitched)
-        torch.cuda.synchronize()
-        stages["beamformer"] = time.perf_counter() - t
-        t = time.perf_counter()
+        mark("beamformer")
         [o.cpu() for o in outs]
-        stages["to_host"] = time.perf_counter() - t
+        mark("to_host")
         samples.append(stages)
     return {k: float(np.median([s[k] for s in samples])) for k in samples[0]}
+
+
+def library_times(torch, pipe, rec, dev):
+    """Card times (CUDA events, median of 30) of the library calls the
+    7ch path makes, one by one, at its shapes on the session: the
+    beamformer's centered STFT of all windows, the two SCM products, the
+    batched 7x7 complex solves of all windows and streams, apply, the
+    whole MVDR stage (these four plus the energy rescale), dedup and K1's
+    centered entry; and the DOA projections of one separator batch. The
+    spectra are the path's own; the separator's per-window masks stand in
+    for the stitched ones (the same shapes)."""
+    from css_tpu_torch.executor.windowing import pad_for_windows, unfold
+    from css_tpu_torch.ops import istft_cuda, mvdr
+    from css_tpu_torch.ops import stft as stft_ops
+
+    wav = pad_for_windows(torch.as_tensor(rec, device=dev),
+                          pipe.separator.win, pipe.separator.hop)
+    masks, _ = pipe.separator.separate(wav)
+    bf = pipe.beamformer
+    windows = unfold(wav, bf.win, bf.hop)  # (B, 7, N)
+    b = min(windows.shape[0], masks.shape[0])
+    spec = stft_ops.stft(windows[:b], bf.n_fft, bf.hop_length,
+                         center=True)[:, None]  # (B, 1, 7, T', F)
+    t = spec.shape[-2]
+    speech = bf._align_mask(masks[:b, :, :, :2].permute(0, 3, 1, 2), t)
+    noise = bf._align_mask(masks[:b, None, :, :, 2], t)
+    tgt = mvdr.compute_scm(spec, speech)
+    noi = mvdr.compute_scm(spec, noise).expand_as(tgt).contiguous()
+    w = mvdr.souden_coefficients(noi, tgt)
+    speakers = masks[:b, ..., :2].permute(0, 3, 1, 2).contiguous()
+    beams = bf._mvdr(windows[:b], speakers, masks[:b, ..., 2])
+    ducked = bf._dedup(beams).reshape(-1, *beams.shape[2:]).contiguous()
+    batch = pipe.separator.batch_size
+    sep_spec = stft_ops.stft(unfold(wav, pipe.separator.win,
+                                    pipe.separator.hop)[:batch],
+                             bf.n_fft, bf.hop_length)  # (32, 7, T, F)
+    sep_mask = (masks[:batch, ..., :2] > 0.5).float()
+    steering = pipe.separator.steering
+    out = {
+        "stft_ms": time_ms(torch, lambda: stft_ops.stft(
+            windows[:b], bf.n_fft, bf.hop_length, center=True)),
+        "scm_shape": list(spec.shape[:1]) + [2] + list(spec.shape[2:]),
+        "scm_ms": time_ms(torch, lambda: (mvdr.compute_scm(spec, speech),
+                                          mvdr.compute_scm(spec, noise))),
+        "solve_shape": list(tgt.shape),
+        "solve_ms": time_ms(torch, lambda: torch.linalg.solve_ex(
+            noi, tgt, check_errors=False)),
+        "solve_and_trace_ms": time_ms(
+            torch, lambda: mvdr.souden_coefficients(noi, tgt)),
+        "apply_ms": time_ms(torch, lambda: mvdr.apply_beamformer(spec, w)),
+        "mvdr_ms": time_ms(torch, lambda: bf._mvdr(
+            windows[:b], speakers, masks[:b, ..., 2])),
+        "dedup_ms": time_ms(torch, lambda: bf._dedup(beams)),
+        "k1_centered_shape": list(ducked.shape),
+        "k1_centered_ms": time_ms(torch, lambda: istft_cuda.istft_centered(
+            ducked, bf.n_fft, bf.hop_length, length=windows.shape[-1])),
+        "doa_shape": list(sep_spec.shape),
+        "doa_likelihood_ms": time_ms(torch, lambda: steering.doa_likelihood(
+            sep_spec, sep_mask)),
+    }
+    return out
 
 
 def separator_masks(torch, pipe, mix, dev):
@@ -439,7 +575,9 @@ def main() -> int:
     from css_tpu_torch.cli.separate import load_model
     from css_tpu_torch.executor.pipeline import CssPipeline
     from css_tpu_torch.models import blstm
+    from css_tpu_torch.executor.reanchor import reanchor_streams
     from css_tpu_torch.ops import _build, istft_cuda, lstm_cuda, stft_mag_cuda
+    from css_tpu_torch.ops import stft as stft_ops
 
     # ---------------------------------------------------------- 1. device
     t0 = time.perf_counter()
@@ -534,14 +672,53 @@ def main() -> int:
     log(f"K1 istft {tuple(spec.shape)}: max_abs_err {err1:.3e}; kernel_ms "
         f"{ms1:.4f} plain_ms {plain1:.4f} bound_ms {b1:.4f} ({by1}); "
         f"device time {dev1} ms")
+    # K1 through its centered entry on the 7ch path's beamformed spectra:
+    # 2 x 73 rows of n_frames + 2 centered frames, trimmed to the window
+    spec_c = istft_centered_input(torch, dev)
+    win = shapes["win"]
+    got = counted(istft_cuda.istft, 1, "istft_centered",
+                  lambda: istft_cuda.istft_centered(spec_c, frame, hop, win))
+    want = stft_ops.istft(spec_c, frame, hop, center=True, length=win)
+    torch.cuda.synchronize()
+    err1c = check_close("istft_centered", got, want, KERNEL_ATOL, KERNEL_RTOL)
+    ms1c = time_ms(torch, lambda: istft_cuda.istft_centered(spec_c, frame,
+                                                            hop, win))
+    dev1c = device_ms(torch, lambda: istft_cuda.istft_centered(
+        spec_c, frame, hop, win))
+    plain1c = time_ms(torch, lambda: stft_ops.istft(
+        spec_c, frame, hop, center=True, length=win))
+    # the same least work as above on T + 2 frames, the trimmed signal
+    # written once
+    t_c = spec_c.shape[1]
+    b1c, by1c = bound_ms(
+        rows * t_c * (frame + rfft_flops(frame))
+        + 2.0 * rows * (t_c + 1) * hop,
+        8.0 * spec_c.numel() + 4.0 * got.numel())
+    # centered, torch.istft takes the window: inside the trim the squared
+    # Hann envelope is >= 0.5, so it normalises as the plain version does
+
+    def lib1c():
+        return torch.istft(spec_c.transpose(1, 2), frame, hop, window=hann,
+                           center=True, length=win)
+
+    lib_err1c = float((lib1c() - want).abs().max())
+    lib1c_ms = time_ms(torch, lib1c)
+    log(f"K1 istft_centered {tuple(spec_c.shape)}: max_abs_err {err1c:.3e} "
+        f"(torch.istft {lib_err1c:.3e}); kernel_ms {ms1c:.4f} plain_ms "
+        f"{plain1c:.4f} library_ms {lib1c_ms:.4f} bound_ms {b1c:.4f} "
+        f"({by1c}); device time {dev1c} ms")
     results.append({
         "name": "istft", "route": "cuda",
         "source": "css_tpu_torch/csrc/istft.cu",
         "replaces": "css_tpu/ops/istft_pallas.py:87",
-        "launches": None, "max_abs_err": err1, "ms": ms1, "plain_ms": plain1,
-        "bound_ms": b1, "bound_by": by1, "library_ms": None,
-        "device_ms": dev1})
-    del x, spec, got, want
+        "launches": None, "max_abs_err": max(err1, err1c), "ms": ms1,
+        "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
+        "library_ms": None, "device_ms": dev1,
+        "centered": {"shape": list(spec_c.shape), "max_abs_err": err1c,
+                     "ms": ms1c, "plain_ms": plain1c, "bound_ms": b1c,
+                     "bound_by": by1c, "library_ms": lib1c_ms,
+                     "device_ms": dev1c}})
+    del x, spec, got, want, spec_c
 
     # K2 on one LSTM direction of a separator batch: the BLSTM's hidden 512
     # per direction and the causal BLSTM's hidden 1024, each in float32 and
@@ -684,7 +861,7 @@ def main() -> int:
         if len(outs) != 2:
             raise AssertionError(f"run {label}: {len(outs)} streams")
         for o in outs:
-            if o.shape != mix.shape or not np.isfinite(o).all():
+            if o.shape != mix.shape[-1:] or not np.isfinite(o).all():
                 raise AssertionError(f"run {label}: bad stream {o.shape}")
             if abs(float(np.abs(o).max()) - 0.9) > 1e-4:
                 raise AssertionError(f"run {label}: peak {np.abs(o).max()}")
@@ -704,7 +881,7 @@ def main() -> int:
     model = load_model(CHECKPOINT)
     if model.compute_dtype != torch.bfloat16:
         raise AssertionError("the flagship's conf should select bf16")
-    mix, _ = synthetic_session(SESSION_SEC, CONFIG["sampling_rate"], SEED)
+    mix, srcs = synthetic_session(SESSION_SEC, CONFIG["sampling_rate"], SEED)
     pipe = CssPipeline(model, CONFIG, device="cuda")
     phase("load", t0)
     expect = {"stft_mag": n_batches, "istft": 1, "lstm_fused": 0}
@@ -714,6 +891,8 @@ def main() -> int:
     for r in results:
         if r["name"] != "lstm_fused":
             r["launches"] = counts_a[r["name"]]
+        # each path's own run, counts set to 0 just before it
+        r["launches_by_path"] = {"conformer": counts_a[r["name"]]}
     stages = stage_seconds(torch, pipe, mix, dev)
     print("stages_s " + json.dumps({"path": "conformer bf16", **stages}),
           flush=True)
@@ -728,9 +907,9 @@ def main() -> int:
                              f"err {pipe_err:.3e} > {PIPE_ATOL}")
     seg = int(BF16_SEGMENT_SEC * sr)
 
-    def bf16_gate(label, outs):
-        snr = best_pair_si_snr(outs, out_b)
-        worst = worst_segment_snr(outs, out_b, seg)
+    def bf16_gate(label, outs, ref):
+        snr = best_pair_si_snr(outs, ref)
+        worst = worst_segment_snr(outs, ref, seg)
         ok = snr >= BF16_SI_SNR_DB and worst >= BF16_SEGMENT_SNR_DB
         print(f"bf16_gate {label}: SI-SNR {snr:.2f} dB (floor "
               f"{BF16_SI_SNR_DB}), worst {BF16_SEGMENT_SEC:.0f} s segment "
@@ -743,12 +922,23 @@ def main() -> int:
                   "last": (n_windows - 1) * bf.hop + bf.margin - bf.hop}
     for where, start in boundaries.items():
         if bf16_gate(f"control, (b) swapped from the {where} boundary",
-                     swapped_from(out_b, start))[0]:
+                     swapped_from(out_b, start), out_b)[0]:
             raise AssertionError(f"the bf16 gate passes (b) with its streams "
                                  f"swapped from the {where} boundary")
-    ok, bf16_snr = bf16_gate("(a) bf16 vs (b) float32", out_a)
+    ok, bf16_snr = bf16_gate("(a) bf16 vs (b) float32", out_a, out_b)
     if not ok:
         raise AssertionError("bf16 vs float32: below the gate's floors")
+    # stream re-anchoring, a host pass, once on (b)'s streams
+    t = time.perf_counter()
+    reanchored, n_swaps = reanchor_streams(list(out_b), sr=sr)
+    reanchor_sec = time.perf_counter() - t
+    if len(reanchored) != 2 or any(r.shape != o.shape or
+                                   not np.isfinite(r).all()
+                                   for r, o in zip(reanchored, out_b)):
+        raise AssertionError("reanchor_streams: bad streams")
+    print("reanchor " + json.dumps({
+        "path": "conformer float32", "swaps": n_swaps,
+        "host_s": reanchor_sec}), flush=True)
     print(f"main_path conformer: {SESSION_SEC:.0f} s session, {n_windows} "
           f"windows; bf16 cold {cold_a:.3f} s, warm {warm_a:.3f} s "
           f"({SESSION_SEC / warm_a:.1f} audio-sec/s); float32 warm "
@@ -776,6 +966,7 @@ def main() -> int:
     for r in results:
         if r["name"] == "lstm_fused":
             r["launches"] = counts_f["lstm_fused"]
+        r["launches_by_path"]["blstm"] = counts_f[r["name"]]
     stages = stage_seconds(torch, pipe, mix, dev)
     print("stages_s " + json.dumps({"path": "blstm float32", **stages}),
           flush=True)
@@ -811,7 +1002,83 @@ def main() -> int:
           f"{stream_err:.3e} (atol {PIPE_ATOL}); bf16 vs float32 masks: max "
           f"{bf16_max:.3e} (bound {BLSTM_BF16_MAX}), mean {bf16_mean:.3e} "
           f"(bound {BLSTM_BF16_MEAN})", flush=True)
+    del model, pipe
     phase("blstm path", t0)
+
+    # ------------------------------------------------ 5. Conformer 7ch path
+    t0 = time.perf_counter()
+    model = load_model(CHECKPOINT_7CH)
+    if model.compute_dtype != torch.bfloat16:
+        raise AssertionError("the 7ch checkpoint's conf should select bf16")
+    rec = session_7ch(srcs)
+    pipe = CssPipeline(model, CONFIG_7CH, device="cuda")
+    phase("7ch load", t0)
+    t0 = time.perf_counter()
+    expect = {"stft_mag": n_batches, "istft": 1, "lstm_fused": 0}
+
+    def run_7ch(label, plain=False):
+        if plain:
+            outs, sec = plain_run(pipe, rec, label)
+            counts = None
+        else:
+            outs, counts, sec = run(pipe, rec, label, expect)
+        kills = int(pipe.separator.merge_kills)
+        log(f"run {label}: DOA merge killed {kills} of {n_windows} windows")
+        return outs, counts, sec, kills
+
+    out7_a, counts_7, cold7_a, kills_a = run_7ch("7ch a bf16 (cold)")
+    _, _, warm7_a, _ = run_7ch("7ch a bf16 (warm)")
+    stages = stage_seconds(torch, pipe, rec, dev)
+    print("stages_s " + json.dumps({"path": "conformer 7ch bf16", **stages}),
+          flush=True)
+    model.compute_dtype = torch.float32
+    out7_b, _, warm7_b, kills_b = run_7ch("7ch b float32")
+    stages_b = stage_seconds(torch, pipe, rec, dev)
+    print("stages_s " + json.dumps({"path": "conformer 7ch float32",
+                                    **stages_b}), flush=True)
+    out7_p, _, _, kills_p = run_7ch("7ch p float32 plain", plain=True)
+    lib = library_times(torch, pipe, rec, dev)
+    print("library_7ch " + json.dumps(lib), flush=True)
+    model.compute_dtype = torch.bfloat16
+    err7 = max(float(np.abs(p - q).max()) for p, q in zip(out7_b, out7_p))
+    if err7 > PIPE_ATOL or kills_b != kills_p:
+        raise AssertionError(
+            f"7ch float32 path with kernels vs plain: max abs err {err7:.3e}"
+            f" (atol {PIPE_ATOL}), DOA-merge kills {kills_b} vs {kills_p}")
+    for where, start in boundaries.items():
+        if bf16_gate(f"7ch control, (b) swapped from the {where} boundary",
+                     swapped_from(out7_b, start), out7_b)[0]:
+            raise AssertionError(f"the 7ch bf16 gate passes (b) with its "
+                                 f"streams swapped from the {where} boundary")
+    ok, bf16_snr7 = bf16_gate("7ch (a) bf16 vs (b) float32", out7_a, out7_b)
+    if not ok:
+        raise AssertionError("7ch bf16 vs float32: below the gate's floors")
+    # SI-SNRi of (b) against the voices' images at channel 0 (the voices
+    # themselves), under the better stream order
+    base = [si_snr_db(rec[0], s_) for s_ in srcs]
+    direct = np.mean([si_snr_db(out7_b[i], srcs[i]) - base[i]
+                      for i in range(2)])
+    swapped = np.mean([si_snr_db(out7_b[i], srcs[1 - i]) - base[1 - i]
+                       for i in range(2)])
+    si_snri = float(max(direct, swapped))
+    if si_snri < SI_SNRI_7CH_DB or kills_b > MAX_KILL_SHARE * n_windows:
+        raise AssertionError(
+            f"the 7ch checkpoint does not separate the session: SI-SNRi of "
+            f"(b) {si_snri:.2f} dB (floor {SI_SNRI_7CH_DB}), DOA merge kills "
+            f"{kills_b} of {n_windows} windows (at most {MAX_KILL_SHARE:.0%})")
+    for r in results:
+        r["launches_by_path"]["conformer_7ch"] = counts_7[r["name"]]
+    print(f"main_path conformer_7ch: {SESSION_SEC:.0f} s 7-channel session, "
+          f"{n_windows} windows, azimuths {AZIMUTHS_7CH}; bf16 cold "
+          f"{cold7_a:.3f} s, warm {warm7_a:.3f} s "
+          f"({SESSION_SEC / warm7_a:.1f} audio-sec/s); float32 warm "
+          f"{warm7_b:.3f} s ({SESSION_SEC / warm7_b:.1f} audio-sec/s); "
+          f"launches {counts_7}; DOA merge kills bf16 {kills_a}, float32 "
+          f"{kills_b}, plain {kills_p}; (b) vs plain max abs err {err7:.3e} "
+          f"(atol {PIPE_ATOL}); (a) vs (b) SI-SNR {bf16_snr7:.2f} dB (floor "
+          f"{BF16_SI_SNR_DB}); SI-SNRi of (b) {si_snri:.2f} dB (floor "
+          f"{SI_SNRI_7CH_DB})", flush=True)
+    phase("conformer 7ch path", t0)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi_line, flush=True)

@@ -1,15 +1,19 @@
-"""Offline continuous separation CLI (1ch).
+"""Offline continuous separation CLI (1ch and 7ch).
 
 Port of the offline path of ``css_tpu/cli/separate.py``: loads an npz
 ``.mdl`` checkpoint, builds the model from its conf, runs the separator ->
 stitcher -> beamformer pipeline over each recording and writes
-{key}_0.wav / {key}_1.wav. ``--session`` keeps only recordings whose path
-(or manifest utt_id) contains the substring. Streaming waits for
-ROADMAP.md Queue 1 item 9.
+{key}_0.wav / {key}_1.wav. A multichannel wav is read as (C, T).
+``--session`` keeps only recordings whose path (or manifest utt_id)
+contains the substring. Streaming waits for ROADMAP.md Queue 1 item 9.
 
     python -m css_tpu_torch.cli.separate --config configs/infer_1ch.yaml \
         --checkpoint checkpoints/h2ft_masksnr_best.mdl \
         --corpus-dir recs/ --out-dir out/ [--device cuda]
+    # 7 channels: IPD features, DOA merge, Souden MVDR
+    python -m css_tpu_torch.cli.separate --config configs/infer_7ch.yaml \
+        --checkpoint checkpoints/s7_mse_best.mdl \
+        --corpus-dir recs7/ --out-dir out7/ [--device cuda]
 
 ``--model BLSTM`` takes a BLSTM checkpoint written by ``css_tpu`` (the npz
 format); its conf's ``blstm_*`` and ``bf16`` keys build the model.
@@ -66,7 +70,8 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True,
-                        help="pipeline YAML (configs/infer_1ch.yaml schema)")
+                        help="pipeline YAML (configs/infer_1ch.yaml or "
+                             "configs/infer_7ch.yaml schema)")
     parser.add_argument("--checkpoint", required=True)
     parser.add_argument("--model", default="Conformer", choices=sorted(MODELS))
     parser.add_argument("--corpus-dir", default=None)

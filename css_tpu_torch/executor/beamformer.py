@@ -1,17 +1,21 @@
-"""Continuous beamformer, ``masking`` type: stitched masks + waveform ->
-separated audio.
+"""Continuous beamformer: stitched masks + waveform -> separated audio.
 
-Port of the masking branch of ``css_tpu/executor/beamformer.py``: every
-window of the recording is analysed with the uncentered STFT (the
-convention the masks were estimated under, so frame counts line up with
-no alignment), multiplied by each stream's mask, deduplicated across
-streams, and resynthesised by the K1 masked-iSTFT kernel in ONE launch
-for all windows and streams. The per-window waveforms are then assembled
-on the proceed-margin partition of the timeline and peak-normalised.
+Port of ``css_tpu/executor/beamformer.py``. All windows of a recording
+are beamformed at once, and the per-window waveforms are assembled on the
+proceed-margin partition of the timeline and peak-normalised. Two types:
 
-The Souden MVDR type, the reference's default, waits for the 7ch slice
-(ROADMAP.md Queue 1 item 6): it raises, so a config that names no type
-fails rather than giving another result than the reference.
+  * ``souden_mvdr``, the reference's default (its asteroid class name
+    ``SoudenMVDRBeamformer`` is accepted): the centered STFT of every
+    channel, each stream's mask aligned to the centered frames, masked
+    Souden MVDR (``ops/mvdr.py``) against the noise stream's SCM, shared
+    by every speaker stream, the output rescaled to the energy of the masked channel 0, cross-stream
+    dedup, and the centered iSTFT of all windows and streams in ONE K1
+    launch (``istft_cuda.istft_centered``). With one channel it reduces to
+    an energy rescale of the mixture, as in the reference.
+  * ``masking``: channel 0's uncentered STFT (the convention the masks
+    were estimated under, so frame counts line up with no alignment)
+    times each stream's mask, dedup, and the uncentered iSTFT in one K1
+    launch.
 """
 
 from __future__ import annotations
@@ -25,11 +29,17 @@ from css_tpu_torch.device import resolve_device
 from css_tpu_torch.executor.windowing import EXTRA_SAMPLES, unfold
 from css_tpu_torch.ops import istft_cuda
 from css_tpu_torch.ops import stft as stft_ops
+from css_tpu_torch.ops.mvdr import (apply_beamformer, compute_scm,
+                                    souden_coefficients)
 
 # cross-stream dedup: a stream more than DEDUP_DB below the loudest one in
 # a window is ducked bin by bin, its gains floored at -40 dB
 DEDUP_DB = 15.0
 DEDUP_FLOOR = 10.0 ** (-40.0 / 20.0)
+# the SCMs' diagonal loading, and the shift of the masks' uncentered
+# frames onto the MVDR spectrum's centered ones
+DIAG_LOADING = 1e-15
+MASK_SHIFT = 1
 
 
 class Beamformer:
@@ -46,11 +56,12 @@ class Beamformer:
     ):
         # the reference's asteroid class names are accepted, as in css_tpu
         if "mvdr" in bf_type.lower():
-            raise NotImplementedError(
-                "souden_mvdr is not ported yet: ROADMAP.md Queue 1 item 6 "
-                "(7ch inference); use type 'masking'")
-        if "mask" not in bf_type.lower():
+            bf_type = "souden_mvdr"
+        elif "mask" in bf_type.lower():
+            bf_type = "masking"
+        else:
             raise ValueError(f"unknown beamformer type {bf_type!r}")
+        self.bf_type = bf_type
         self.device = resolve_device(device)
         self.n_fft = n_fft
         self.hop_length = hop_length
@@ -64,16 +75,56 @@ class Beamformer:
                 f"proceed margin {self.margin} must lie in [hop {self.hop}, "
                 f"window {self.win}] samples")
 
-    def _process(self, wav_windows: torch.Tensor,
-                 speaker_masks: torch.Tensor) -> torch.Tensor:
-        """wav_windows (B, N); speaker_masks (B, K, T, F) -> (B, K, N)."""
+    def _align_mask(self, mask: torch.Tensor, t_spec: int) -> torch.Tensor:
+        """Masks (..., T, F) on the uncentered frames -> (..., t_spec, F)
+        on the centered ones: uncentered frame t is centered frame t + 1,
+        so the masks move by MASK_SHIFT frames and the edges are
+        replicated."""
+        t_mask = mask.shape[-2]
+        idx = torch.arange(t_spec, device=mask.device) - MASK_SHIFT
+        return mask[..., torch.clamp(idx, 0, t_mask - 1), :]
+
+    def _mvdr(self, wav_windows: torch.Tensor, speaker_masks: torch.Tensor,
+              noise_mask: torch.Tensor) -> torch.Tensor:
+        """wav_windows (B, D, N); speaker_masks (B, K, T, F); noise_mask
+        (B, T, F) -> beamformed spectra (B, K, T', F) on the centered
+        frames, rescaled."""
+        spec = stft_ops.stft(wav_windows, self.n_fft, self.hop_length,
+                             center=True)  # (B, D, T', F)
+        t = spec.shape[2]
+        speech = self._align_mask(speaker_masks, t)  # (B, K, T', F)
+        noise = self._align_mask(noise_mask[:, None], t)  # (B, 1, T', F)
+        spec_k = spec[:, None]  # (B, 1, D, T', F)
+        tgt = compute_scm(spec_k, speech, DIAG_LOADING)
+        noi = compute_scm(spec_k, noise, DIAG_LOADING)
+        # one noise SCM, shared by every stream
+        w = souden_coefficients(noi.expand_as(tgt), tgt)  # (B, K, F, D)
+        out = apply_beamformer(spec_k, w)  # (B, K, T', F)
+        # the output's energy set to the masked channel 0's
+        masked = speech * spec[:, None, 0]
+        masked_e = torch.sqrt(masked.abs().square().mean(dim=(2, 3),
+                                                         keepdim=True))
+        out_e = torch.sqrt(out.abs().square().mean(dim=(2, 3), keepdim=True))
+        return out / torch.clamp(out_e, min=1e-12) * masked_e
+
+    def _process(self, wav_windows: torch.Tensor, speaker_masks: torch.Tensor,
+                 noise_mask: torch.Tensor) -> torch.Tensor:
+        """wav_windows (B, D, N); speaker_masks (B, K, T, F); noise_mask
+        (B, T, F) -> (B, K, N)."""
         n = wav_windows.shape[-1]
         b, k = speaker_masks.shape[:2]
-        spec = stft_ops.stft(wav_windows, self.n_fft, self.hop_length,
-                             center=False)  # (B, T, F)
-        t = min(spec.shape[1], speaker_masks.shape[2])
-        outs = self._dedup(speaker_masks[:, :, :t] * spec[:, None, :t])
-        wavs = self._masked_istft(outs.reshape(b * k, t, -1).contiguous(), n)
+        if self.bf_type == "masking":
+            spec = stft_ops.stft(wav_windows[:, 0], self.n_fft,
+                                 self.hop_length, center=False)  # (B, T, F)
+            t = min(spec.shape[1], speaker_masks.shape[2])
+            outs = self._dedup(speaker_masks[:, :, :t] * spec[:, None, :t])
+            wavs = self._masked_istft(
+                outs.reshape(b * k, t, -1).contiguous(), n)
+            return wavs.reshape(b, k, -1)
+        outs = self._dedup(self._mvdr(wav_windows, speaker_masks, noise_mask))
+        wavs = istft_cuda.istft_centered(
+            outs.reshape(b * k, *outs.shape[2:]).contiguous(), self.n_fft,
+            self.hop_length, length=n)
         return wavs.reshape(b, k, -1)
 
     def _dedup(self, s: torch.Tensor) -> torch.Tensor:
@@ -112,22 +163,25 @@ class Beamformer:
     @torch.no_grad()
     def continuous_process(self, wav, masks: Sequence[torch.Tensor]
                            ) -> Tuple[torch.Tensor, ...]:
-        """wav (T,); masks: K+1 stitched (T_frames, F) masks (K speaker
-        streams, then noise) -> K waveforms (T,), peak-normalised to 0.9."""
+        """wav (T,) or (D, T); masks: K+1 stitched (T_frames, F) masks (K
+        speaker streams, then noise) -> K waveforms (T,), peak-normalised
+        to 0.9."""
         wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
-        if wav.ndim != 1:
-            raise ValueError(f"1ch beamforming takes (T,), got "
+        if wav.ndim == 1:
+            wav = wav[None]
+        if wav.ndim != 2:
+            raise ValueError(f"beamforming takes (T,) or (D, T), got "
                              f"{tuple(wav.shape)}")
         total = wav.shape[-1]
-        wav_windows = unfold(wav, self.win, self.hop)  # (B, N)
+        wav_windows = unfold(wav, self.win, self.hop)  # (B, D, N)
         mask_windows = [
             unfold(torch.as_tensor(m, device=self.device).T, self.mask_win,
                    self.mask_hop)  # (B, F, Tw)
-            for m in masks[:-1]]
+            for m in masks]
         b = min([wav_windows.shape[0]] + [mw.shape[0] for mw in mask_windows])
-        speaker_masks = torch.stack(
-            [mw[:b].transpose(1, 2) for mw in mask_windows], dim=1)
-        wavs = self._process(wav_windows[:b].contiguous(), speaker_masks)
+        tw = [mw[:b].transpose(1, 2) for mw in mask_windows]
+        wavs = self._process(wav_windows[:b].contiguous(),
+                             torch.stack(tw[:-1], dim=1), tw[-1])
         outs = []
         for s in range(wavs.shape[1]):
             res = self._assemble(wavs[:, s], total)

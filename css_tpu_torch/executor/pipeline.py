@@ -1,11 +1,12 @@
-"""End-to-end 1ch continuous separation pipeline.
+"""End-to-end continuous separation pipeline (1ch and 7ch).
 
 Port of ``css_tpu/executor/pipeline.py``: separator -> stitcher ->
-beamformer per recording, configured from the reference YAML schema
-({separation, stitching, beamforming}, ``configs/infer_1ch.yaml``), with
-the reference's defaults: a config without ``beamforming.type`` asks for
-Souden MVDR, which waits for the 7ch slice. The recording goes to
-``device`` once; the separated streams come back to the host as numpy.
+beamformer per recording, then optionally stream re-anchoring on the
+host, configured from the reference YAML schema ({separation, stitching,
+beamforming}, ``configs/infer_1ch.yaml`` and ``configs/infer_7ch.yaml``)
+with the reference's defaults (a config without ``beamforming.type``
+runs Souden MVDR). The recording goes to ``device`` once; the separated
+streams come back to the host as numpy.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from css_tpu_torch.data.wav_io import write_wav
 from css_tpu_torch.device import resolve_device
 from css_tpu_torch.executor.beamformer import Beamformer
+from css_tpu_torch.executor.reanchor import reanchor_streams
 from css_tpu_torch.executor.separator import Separator
 from css_tpu_torch.executor.stitcher import Stitcher
 from css_tpu_torch.executor.windowing import pad_for_windows
@@ -36,10 +38,6 @@ class CssPipeline:
             raise NotImplementedError(
                 "sharded separation is not ported yet: ROADMAP.md Queue 1 "
                 "item 10")
-        if sti.get("reanchor"):
-            raise NotImplementedError(
-                "stream re-anchoring is not ported yet: ROADMAP.md Queue 1 "
-                "item 5b")
         self.sr = int(config.get("sampling_rate", sr))
         self.num_spk = int(sep.get("num_spk", getattr(model, "num_spk", 2)))
         self.model = model.to(self.device).eval()
@@ -52,6 +50,8 @@ class CssPipeline:
             batch_size=int(sep.get("batch_size", 32)),
             ipd_index=sep.get("ipd"),
             merge=bool(sep.get("merge", False)),
+            merge_threshold=float(sep.get("merge_threshold", 16.0)),
+            num_spk=self.num_spk,
             device=self.device,
         )
         self.stitcher = Stitcher(
@@ -63,6 +63,9 @@ class CssPipeline:
             num_spk=self.num_spk,
             device=self.device,
         )
+        # session-level stream-identity re-anchoring on the host streams
+        # (executor/reanchor.py)
+        self.reanchor = bool(sti.get("reanchor", False))
         self.beamformer = Beamformer(
             bf_type=bf.get("type", "souden_mvdr"),
             sr=self.sr,
@@ -73,19 +76,22 @@ class CssPipeline:
             proceed_margin=float(bf.get("proceed_margin", 2.0)),
             device=self.device,
         )
+        # only these read channels other than channel 0
+        self.reads_all_channels = bool(
+            sep.get("ipd") or self.separator.merge
+            or self.beamformer.bf_type == "souden_mvdr")
 
     @torch.no_grad()
     def process(self, wav: np.ndarray) -> Tuple[np.ndarray, ...]:
         """wav (T,) or (C, T) -> tuple of num_spk separated streams (T,),
-        float32. A (C, T) recording is separated from channel 0, as the
-        reference does under the 1ch config: with no IPD features the
-        separator reads channel 0's magnitude, and the masking beamformer
-        masks channel 0's spectrum. (IPD features and Souden MVDR, the
-        options that read the other channels, raise in the constructor.)"""
+        float32. Only the IPD features, the DOA merge and Souden MVDR read
+        channels other than channel 0, so a (C, T) recording keeps all of
+        them when the config asks for one of those, and goes on as channel
+        0 alone otherwise, which gives the reference's streams."""
         wav = np.asarray(wav, np.float32)
-        if wav.ndim == 2:
+        if wav.ndim == 2 and not self.reads_all_channels:
             wav = wav[0]
-        if wav.ndim != 1:
+        if wav.ndim not in (1, 2):
             raise ValueError(f"a recording is (T,) or (C, T), got "
                              f"{wav.shape}")
         wav = torch.as_tensor(wav, device=self.device)
@@ -94,7 +100,10 @@ class CssPipeline:
         masks, mags = self.separator.separate(wav)
         stitched = self.stitcher(masks, mags)
         outs = self.beamformer.continuous_process(wav, stitched)
-        return tuple(o[:total].cpu().numpy() for o in outs)
+        outs = [o[:total].cpu().numpy() for o in outs]
+        if self.reanchor:
+            outs, _ = reanchor_streams(outs, sr=self.sr)
+        return tuple(outs)
 
     def process_recording(self, key: str, wav: np.ndarray, out_dir: str):
         """Separate one recording and write {key}_{i}.wav per stream."""

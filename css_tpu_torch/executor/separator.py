@@ -1,10 +1,12 @@
 """Chunked separator: long recording -> per-window TF masks.
 
-Port of ``css_tpu/executor/separator.py`` (1ch, no DOA merge, no exported
-graph): the recording is cut into sliding windows, the windows run through
-features + model in batches of ``batch_size`` (the last batch padded with
-zero windows and sliced back, so every forward has one shape), and the
-masks are clamped at 1. Everything stays on ``device``.
+Port of ``css_tpu/executor/separator.py`` (no exported graph): the
+recording, (T,) or (C, T), is cut into sliding windows, the windows run
+through features + model in batches of ``batch_size`` (the last batch
+padded with zero windows and sliced back, so every forward has one
+shape), and the masks are clamped at 1. With ``merge`` (7ch) the DOA
+merge (``executor/doa.py``) kills the weaker of the two speaker masks in
+every window whose two DOAs coincide. Everything stays on ``device``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from css_tpu_torch.device import resolve_device
+from css_tpu_torch.executor.doa import SteeringVectors, kill_masks
 from css_tpu_torch.executor.windowing import EXTRA_SAMPLES, unfold
 from css_tpu_torch.ops.features import FeatureExtractor
 
@@ -32,12 +35,16 @@ class Separator:
         batch_size: int = 32,
         ipd_index: Optional[str] = None,
         merge: bool = False,
+        merge_threshold: float = 16.0,
+        num_spk: int = 2,
         device: Union[str, torch.device] = "cuda",
     ):
-        if merge:
-            raise NotImplementedError(
-                "the 7ch DOA mask merge is not ported yet: ROADMAP.md Queue 1 "
-                "item 6")
+        if merge and num_spk != 2:
+            # angle_merge compares exactly two speaker DOAs; with K > 2 it
+            # would route the extra speakers as noise streams
+            raise ValueError(
+                f"merge=true requires num_spk==2 (got {num_spk}); disable "
+                "the DOA merge for K-speaker separation")
         self.device = resolve_device(device)
         self.model = model
         self.win = int(eval_win * sr) + EXTRA_SAMPLES
@@ -45,33 +52,55 @@ class Separator:
         self.batch_size = batch_size
         self.features = FeatureExtractor(frame_len, frame_hop,
                                          ipd_index=ipd_index)
+        self.merge = merge
+        self.merge_threshold = merge_threshold
+        self.steering = (SteeringVectors(nfreqs=self.features.num_bins, sr=sr)
+                         if merge else None)
+        # windows whose weaker speaker mask the DOA merge killed in the
+        # last separate() call (a 0-d tensor on device; None without merge)
+        self.merge_kills = None
 
     @torch.no_grad()
     def forward(self, wav_batch: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, N) windows -> (masks (B, T, F, S) clamped at 1, mag (B, T, F))."""
-        mag, feats = self.features(wav_batch)
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """(B, N) or (B, C, N) windows -> (masks (B, T, F, S) clamped at 1,
+        mag (B, T, F), kill (B, 2) bool from the DOA merge or None)."""
+        if self.merge:
+            mag, feats, spec = self.features(wav_batch, return_spec=True)
+        else:
+            mag, feats = self.features(wav_batch)
         _, masks = self.model(feats)
-        return torch.clamp(masks, max=1.0), mag
+        masks = torch.clamp(masks, max=1.0)
+        kill = None
+        if self.merge:
+            kill, _ = self.steering.merge_decisions(
+                spec, masks[..., :2], thresh=self.merge_threshold)
+            masks = torch.cat([kill_masks(masks[..., :2], kill),
+                               masks[..., 2:]], dim=-1)
+        return masks, mag, kill
 
     @torch.no_grad()
     def separate(self, wav: Union[np.ndarray, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """wav (T,) full recording -> (masks (B, T', F, S), mags (B, T', F))
-        on ``device``, one row per sliding window."""
+        """wav (T,) or (C, T) full recording -> (masks (B, T', F, S),
+        mags (B, T', F)) on ``device``, one row per sliding window."""
         wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
-        if wav.ndim != 1:
-            raise ValueError(f"1ch separation takes (T,), got {tuple(wav.shape)}")
-        windows = unfold(wav, self.win, self.hop)  # (B, win) view
+        if wav.ndim not in (1, 2):
+            raise ValueError(f"a recording is (T,) or (C, T), got "
+                             f"{tuple(wav.shape)}")
+        windows = unfold(wav, self.win, self.hop)  # (B, [C,] win) view
         n = windows.shape[0]
         bs = self.batch_size
-        outs_m, outs_g = [], []
+        outs_m, outs_g, kills = [], [], []
         for i in range(0, n, bs):
             chunk = windows[i : i + bs]
             real = chunk.shape[0]
-            batch = chunk.new_zeros((bs, self.win))
+            batch = chunk.new_zeros((bs,) + tuple(chunk.shape[1:]))
             batch[:real] = chunk
-            masks, mag = self.forward(batch)
+            masks, mag, kill = self.forward(batch)
             outs_m.append(masks[:real])
             outs_g.append(mag[:real])
+            if kill is not None:
+                kills.append(kill[:real].any(dim=-1).sum())
+        self.merge_kills = torch.stack(kills).sum() if kills else None
         return torch.cat(outs_m), torch.cat(outs_g)

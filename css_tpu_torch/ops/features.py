@@ -1,9 +1,12 @@
-"""Spectral feature extraction: magnitude, floor, MVN (1ch).
+"""Spectral and spatial feature extraction: magnitude, floor, MVN, IPD.
 
 Port of ``css_tpu/ops/features.py`` (``EPSILON``, ``mvn``,
-``cumulative_mvn`` and the 1ch ``FeatureExtractor``). On a CUDA tensor
-the magnitude comes from the K3 kernel (``stft_mag_cuda``); on a CPU
-tensor from its plain version. IPD features wait for the 7ch slice.
+``cumulative_mvn``, ``parse_ipd_index``, ``ipd`` and
+``FeatureExtractor``). Channel 0's magnitude comes from the K3 kernel
+(``stft_mag_cuda``) on a CUDA tensor and from its plain version on a CPU
+tensor. The complex spectrum of every channel, which the IPD features
+and the DOA merge read, is the matrix-product STFT (``ops/stft.py``), as
+the reference computes it outside any Pallas kernel.
 
 Layout is time-major (..., T, F).
 """
@@ -56,23 +59,71 @@ def cumulative_mvn(x: torch.Tensor, carry=None, eps: float = EPSILON):
     return out, (count0 + t, csum[..., -1, :], csumsq[..., -1, :])
 
 
+def parse_ipd_index(ipd_index: str) -> Tuple[np.ndarray, np.ndarray]:
+    """'1,0;2,0;...' -> (left, right) channel index arrays."""
+    pairs = [tuple(map(int, p.split(","))) for p in ipd_index.split(";")]
+    left = np.asarray([p[0] for p in pairs], np.int64)
+    right = np.asarray([p[1] for p in pairs], np.int64)
+    return left, right
+
+
+def ipd(phase: torch.Tensor, left: np.ndarray,
+        right: np.ndarray) -> torch.Tensor:
+    """Inter-channel phase difference, re-centred over time.
+
+    phase (..., C, T, F) -> (..., M, T, F): the pair's phase difference
+    as a unit vector (cos, sin), its mean over frames subtracted, and the
+    angle of what is left, in (-pi, pi]."""
+    left = torch.as_tensor(left, device=phase.device)
+    right = torch.as_tensor(right, device=phase.device)
+    dif = (torch.index_select(phase, -3, left)
+           - torch.index_select(phase, -3, right))
+    yr, yi = torch.cos(dif), torch.sin(dif)
+    yrm = yr.mean(dim=-2, keepdim=True)
+    yim = yi.mean(dim=-2, keepdim=True)
+    return torch.atan2(yi - yim, yr - yrm)
+
+
 class FeatureExtractor:
-    """Uncentered STFT magnitude, floored at EPSILON, MVN over frames."""
+    """Uncentered STFT magnitude of channel 0, floored at EPSILON, MVN
+    over frames, and optionally the IPD features of channel pairs."""
 
     def __init__(self, frame_len: int = 512, frame_hop: int = 256,
                  ipd_index: Optional[str] = None):
-        if ipd_index:
-            raise NotImplementedError(
-                "IPD features (7ch) are not ported yet: ROADMAP.md Queue 1 "
-                "item 6")
         self.frame_len = frame_len
         self.frame_hop = frame_hop
         self.num_bins = stft_ops.num_fft_bins(frame_len)
+        if ipd_index:
+            self.ipd_left, self.ipd_right = parse_ipd_index(ipd_index)
+            self.feature_dim = self.num_bins * (1 + len(self.ipd_left))
+        else:
+            self.ipd_left = self.ipd_right = None
+            self.feature_dim = self.num_bins
 
-    def __call__(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: (B, N) waveform -> (mag (B, T, F), feats (B, T, F))."""
-        if x.ndim != 2:
-            raise ValueError(f"1ch features take (B, N), got {tuple(x.shape)}")
-        mag = stft_mag_cuda.stft_mag(x, self.frame_len, self.frame_hop)
+    def __call__(self, x: torch.Tensor, return_spec: bool = False):
+        """x: (B, N) or (B, C, N) waveform -> (mag (B, T, F), feats
+        (B, T, F')), and with ``return_spec`` the complex spectrum
+        (B[, C], T, F) as a third item. mag is channel 0's; feats are
+        its floored, MVN'd magnitude, then with IPD the M pairs' IPD in
+        the reference's frequency-major (B, T, M*F) order."""
+        if x.ndim not in (2, 3):
+            raise ValueError(f"features take (B, N) or (B, C, N), got "
+                             f"{tuple(x.shape)}")
+        multi = x.ndim == 3
+        if self.ipd_left is not None and not multi:
+            raise ValueError("IPD features need multi-channel input")
+        mag = stft_mag_cuda.stft_mag(
+            x[:, 0].contiguous() if multi else x, self.frame_len,
+            self.frame_hop)
         feats = mvn(torch.clamp(mag, min=EPSILON), dim=-2)
-        return mag, feats
+        spec = None
+        if self.ipd_left is not None or return_spec:
+            spec = stft_ops.stft(x, self.frame_len, self.frame_hop,
+                                 center=False)
+        if self.ipd_left is not None:
+            phase = torch.atan2(spec.imag, spec.real)
+            ip = ipd(phase, self.ipd_left, self.ipd_right)  # (B, M, T, F)
+            b, m, t, f = ip.shape
+            ip = ip.transpose(1, 2).reshape(b, t, m * f)
+            feats = torch.cat([feats, ip], dim=-1)
+        return (mag, feats, spec) if return_spec else (mag, feats)

@@ -2,9 +2,10 @@
 
 Replaces the TPU kernel ``css_tpu/ops/istft_pallas.py:istft_pallas`` (body
 ``_istft_kernel``): complex (rows, T, bins) -> (rows, (T+1)*hop) float32,
-uncentered, frame_len == 2*hop, n_fft = 2*(bins - 1). On the main path it
-resynthesises every masked stream of a recording in one launch
-(``executor/beamformer.py``).
+uncentered, frame_len == 2*hop, n_fft = 2*(bins - 1). On the main paths
+it resynthesises every stream of a recording in one launch
+(``executor/beamformer.py``): uncentered for the masking beamformer, and
+through ``istft_centered`` (K1, then the centering trim) for Souden MVDR.
 
 What bounds the function on the H100: bytes — ~0.46 MB in and out per
 row, 0.020 ms for the 146 rows of a 60 s recording at 3.35 TB/s. The
@@ -31,6 +32,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from css_tpu_torch.ops import _build, stft_mag_cuda
 from css_tpu_torch.ops import stft as stft_ops
@@ -110,3 +112,21 @@ def istft(spec: torch.Tensor, frame_len: int = 512,
 
 istft.launches = 0
 istft.plain_routes = 0
+
+
+def istft_centered(spec: torch.Tensor, frame_len: int = 512, hop: int = 256,
+                   length: int = None) -> torch.Tensor:
+    """The centered iSTFT, ``ops.stft.istft(center=True, length=length)``
+    (its plain version): ``istft`` above (K1 on the card), then the
+    centering pad n_fft//2 trimmed from both ends, then zero-padded or cut
+    to ``length``. Launches and plain routes count in ``istft``'s
+    counters."""
+    pad = spec.shape[-1] - 1  # n_fft // 2 = bins - 1
+    sig = istft(spec, frame_len, hop)
+    sig = sig[..., pad : sig.shape[-1] - pad]
+    if length is not None:
+        if length > sig.shape[-1]:
+            sig = F.pad(sig, (0, length - sig.shape[-1]))
+        else:
+            sig = sig[..., :length]
+    return sig

@@ -127,6 +127,80 @@ def test_istft_kernel_random_spectrum(card, rows, frames):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("rows,n,length", [(146, 38656, 38656),
+                                           (4, 5120, 5000),
+                                           (3, 2816, 4000)])
+def test_istft_centered_entry_matches_plain(card, rows, n, length):
+    """K1 through its centered entry (the Souden MVDR path's synthesis):
+    one launch, then the centering trim and the cut or pad to length."""
+    spec = stft_ops.stft(_signal((rows, n), rows + 1, card), center=True)
+    spec = (spec * torch.rand(spec.shape, device=card)).contiguous()
+    before = istft_cuda.istft.launches
+    got = istft_cuda.istft_centered(spec, 512, 256, length)
+    torch.cuda.synchronize()
+    assert istft_cuda.istft.launches == before + 1
+    want = stft_ops.istft(spec, 512, 256, center=True, length=length)
+    assert got.shape == want.shape == (rows, length)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def _recording_7ch(seconds, seed):
+    """Two noise sources at 30 and 150 degrees on the 7-mic array with
+    0.03 sensor noise, so that float32 determines the Souden weights
+    (tests/test_torch_mvdr.py)."""
+    from css_tpu_torch.data.spatial import spatialize
+
+    rng = np.random.default_rng(seed)
+    srcs = rng.standard_normal((2, int(seconds * 16000))) * 0.1
+    return spatialize(srcs, [30.0, 150.0], noise_level=0.03, rng=rng), rng
+
+
+def test_mvdr_on_the_card_matches_the_cpu(card):
+    """ops.mvdr on the card (batched complex einsums and
+    torch.linalg.solve_ex) against the same on the CPU: the SCMs to 1e-5
+    of their largest entry, the beamformed spectrum to 1e-4 of its."""
+    from css_tpu_torch.ops import mvdr
+
+    rec, rng = _recording_7ch(38656 * 3 / 16000, 1)
+    wins = torch.as_tensor(np.ascontiguousarray(
+        rec.reshape(7, 3, 38656).transpose(1, 0, 2)))
+    spec = stft_ops.stft(wins, center=True)  # (3, 7, 152, 257)
+    tgt_m, noi_m = (torch.as_tensor(rng.uniform(0, 1, (3, 152, 257))
+                                    .astype(np.float32)) for _ in range(2))
+    scm = mvdr.compute_scm(spec.to(card), tgt_m.to(card)).cpu()
+    want = mvdr.compute_scm(spec, tgt_m)
+    assert float((scm - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    got = mvdr.souden_mvdr(spec.to(card), tgt_m.to(card), noi_m.to(card))
+    want = mvdr.souden_mvdr(spec, tgt_m, noi_m)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("seconds", [3.3, 8.0])
+def test_mvdr_beamformer_on_the_card_matches_the_cpu(card, seconds):
+    """The Souden MVDR beamformer on a (7, T) recording, on the card (K1
+    through the centered entry, one launch) and on the CPU (the plain
+    versions): the 0.9-peak streams to 1e-3 (tests/test_torch_mvdr.py)."""
+    from css_tpu_torch.executor.beamformer import Beamformer
+    from css_tpu_torch.executor.windowing import pad_for_windows
+
+    rec, rng = _recording_7ch(seconds, 2)
+    wav = pad_for_windows(torch.as_tensor(rec), 38656, 12800)
+    n_win = (wav.shape[-1] - 38656) // 12800 + 1
+    masks = [torch.as_tensor(rng.uniform(0, 1, ((n_win - 1) * 50 + 150, 257))
+                             .astype(np.float32)) for _ in range(3)]
+    want = Beamformer(device="cpu").continuous_process(wav, masks)
+    before = istft_cuda.istft.launches
+    got = Beamformer(device=card).continuous_process(
+        wav.to(card), [m.to(card) for m in masks])
+    torch.cuda.synchronize()
+    assert istft_cuda.istft.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=0.0)
+
+
 def test_kernels_refuse_what_they_do_not_take(card):
     """Wrong layouts and types raise; a framing other than frame_len ==
     2*hop takes the plain route, counted, with no launch."""

@@ -30,12 +30,18 @@ import chip_smoke
 assert not any(m in sys.modules and sys.modules[m] is not None
                for m in {BLOCKED!r})
 print(len(names))
+print(" ".join(names))
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    count, names = res.stdout.strip().splitlines()
+    assert int(count) >= 20
+    # the 7ch slice's modules are among them
+    for name in ("executor.doa", "executor.reanchor", "ops.mvdr",
+                 "data.spatial"):
+        assert "css_tpu_torch." + name in names.split()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
@@ -53,3 +59,27 @@ def test_chip_smoke_config_is_infer_1ch_yaml():
 
     with open(REPO / "configs" / "infer_1ch.yaml") as fh:
         assert chip_smoke.CONFIG == yaml.safe_load(fh)
+
+
+def test_chip_smoke_config_7ch_is_infer_7ch_yaml():
+    import chip_smoke
+
+    with open(REPO / "configs" / "infer_7ch.yaml") as fh:
+        assert chip_smoke.CONFIG_7CH == yaml.safe_load(fh)
+
+
+def test_port_spatialisation_is_the_references():
+    """chip_smoke.py's 7ch session uses the port's own copy of the array
+    geometry; it must be css_tpu.data.spatial's."""
+    import numpy as np
+
+    from css_tpu.data import spatial as jsp
+    from css_tpu_torch.data import spatial as tsp
+
+    assert tsp.MIC_OFFSETS == jsp.MIC_OFFSETS
+    az = np.array([0.0, 30.0, 123.4, 300.0])
+    np.testing.assert_array_equal(tsp.mic_delays(az), jsp.mic_delays(az))
+    srcs = np.random.default_rng(0).standard_normal((2, 20000)) * 0.1
+    np.testing.assert_allclose(tsp.spatialize(srcs, [30.0, 150.0]),
+                               jsp.spatial_session(srcs, [30.0, 150.0]),
+                               atol=1e-6)
