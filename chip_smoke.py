@@ -50,6 +50,34 @@ Phases, each timed on its own line:
      card times of the beamformer's calls one by one (the centered STFT,
      the SCM products, the batched 7x7 solves, apply, dedup, K1's centered
      entry) and of the DOA projections.
+  6. Conformer train path: training at the flagship's full width (16 x
+     256, 4 heads, kernel 33, 257 bins, 2 speakers + noise) on the
+     recipe's on-the-fly mixtures (``SyntheticCorpus`` with synthetic RIRs
+     and noise), with K3 featurizing every step (one launch over the
+     stacked mix and sources). First K3 at the training shape against its
+     plain version, with its times and bound. Then:
+       (a) kernel vs plain, float32: one step's loss, pre-clip gradient
+           norm and gradients from one state and batch, featurized by K3
+           and by the plain version (gates TRAIN_*), with a control batch
+           whose gradient must fail the gradient gate;
+       (b) descent, bf16: DESCENT_STEPS Adam steps at DESCENT_LR on one
+           fixed batch from random weights must lower the loss by at least
+           DESCENT_MIN_DROP, which the same steps at lr 0 must not;
+       (c) the recipe's run through ``cli.train``'s own code (bf16, a few
+           epochs of a few batches, warm-started from the flagship, launch
+           counts reset before and read after: K3 once per train and
+           validation batch, no plain route):
+           finite losses, the checkpoints and jsonl written, the trained
+           checkpoint through the 1ch separation of the session (finite
+           streams, peak 0.9), and reloading it gives the trainer's
+           tensors bit for bit;
+       (d) a batch with a NaN leaves params, Adam's state and the
+           BatchNorm statistics bit-equal and advances the step counter;
+       (e) Conv-TasNet at its default width (512 filters, 8 x 3 blocks), a
+           few float32 SI-SNR steps: finite losses, step ms.
+     Printed: the median warm train-step ms and train audio-sec/s (batch x
+     window seconds / step seconds) in bf16 and float32 for the Conformer
+     and a full-width BLSTM (hidden 1024, 3 layers).
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and last the result line ``{"ok": true, "device": {...}}``. Progress goes
 to stderr. Any failed check raises, and the exit code is then non-zero;
@@ -59,6 +87,7 @@ without a CUDA device the script exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -173,6 +202,44 @@ LSTM_F32_MAX_ERR = 5e-6
 BLSTM_SEED = 20261018
 BLSTM_MASK_ATOL = 1e-3
 BLSTM_BF16_MAX, BLSTM_BF16_MEAN = 0.1, 1e-2
+# The train path: the recipe's batch of 32 (recipes/train_conformer.sh with
+# parity=1) at its largest window bucket, 4.0 s (249 frames), mixed on the
+# fly from the CLI's default synthetic corpus with its RIR and noise pools;
+# weights from TRAIN_SEED; the recipe's optimiser (Adam, weight decay 1e-2,
+# clip 5.0) and MSE with noise weight 0.3.
+TRAIN_SEED = 20261019
+TRAIN_BATCH, TRAIN_WINDOW_SEC = 32, 4.0
+# (a) K3 vs the plain version in one float32 step. The loss and the
+# pre-clip gradient norm are sums over the whole batch: 1e-5 and 1e-4
+# relative. Single gradient elements are not gated: the model's per-bin
+# MVN divides by a bin's standard deviation over time, which is ~1e-4 at
+# the synthetic noise's spectral zeros (multiples of 2 kHz) in windows
+# without added noise, so any two float32 STFTs (their magnitudes differ
+# by ~1e-6 relative) move single gradient elements by up to ~10% of their
+# tensor's largest (a CPU rehearsal with an FFT STFT in place of the
+# matrix one: 4.6-13%). The gate is on the whole gradient: the norm of
+# the difference over the norm, which that rehearsal put at 6.3e-4 (2
+# blocks) and 1.5e-3 (6 blocks); 2e-2 leaves room for 16. The gradient of
+# another batch, a control, must fail it.
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_GRAD_L2 = 1e-5, 1e-4, 2e-2
+# (b) The loss drop (1 - mean of the last 5 losses / the first) over 30
+# steps at lr 1e-3 without warmup on one batch, bf16: a CPU rehearsal
+# (recipe data, batch 4 / 8) gave 60% at 2 blocks and 43% at 6 blocks, the
+# same steps at lr 0 1.5% and -0.4% (dropout noise only). 20% lies between.
+DESCENT_STEPS, DESCENT_LR, DESCENT_MIN_DROP = 30, 1e-3, 0.2
+# (c) the recipe's flags (recipes/train_conformer.sh, its throughput mode:
+# batch 64 on windows aligned to 128 frames), cut to 2 epochs of 4 batches
+# and 2 validation batches, warm-started (--init) from the flagship: from
+# random weights the untrained model's winner-take-all can leave a stream
+# silent, which the separation's peak check would read as a fault
+RECIPE_ARGS = ["--synthetic-data", "--synthetic-rirs", "--batch-size", "64",
+               "--align-window-frames", "128", "--model", "Conformer",
+               "--objective", "MSE", "--optim", "adam", "--lr", "1e-4",
+               "--weight-decay", "1e-2", "--grad-thresh", "5.0",
+               "--warmup", "20000", "--decay", "1e-5",
+               "--mse-noise-weight", "0.3", "--bf16", "--keep-every", "20",
+               "--keep-last", "2"]
+RECIPE_EPOCHS, RECIPE_BATCHES, RECIPE_VALID = 2, 4, 2
 
 
 def log(*args):
@@ -300,6 +367,41 @@ def device_ms(torch, fn, reps: int = 20):
         log("device_ms: torch.profiler recorded no device time")
         return None
     return total_us / reps / 1e3
+
+
+def graph_ms(torch, fn, reps: int = 20):
+    """Device ms of one fn() without the host's launch overhead, by a
+    second route: reps calls captured in a CUDA graph, the graph replayed
+    between two events (median of 10 replays) / reps. Back-to-back calls
+    on the same inputs: an input and output that fit the 50 MB L2 stay
+    there. None, with the reason logged, where capture fails."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        del graph
+        return float(np.median(times))
+    except Exception as exc:  # noqa: BLE001 - a measurement, not a gate
+        log(f"graph_ms: CUDA graph capture failed: {exc!r}")
+        return None
 
 
 def rfft_flops(n: int) -> float:
@@ -563,6 +665,301 @@ def separator_masks(torch, pipe, mix, dev):
     wav = pad_for_windows(torch.as_tensor(mix, device=dev),
                           pipe.separator.win, pipe.separator.hop)
     return pipe.separator.separate(wav)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def train_material():
+    """The CLI's default synthetic corpus and its RIR and noise pools."""
+    from css_tpu_torch.data.corpus import (SyntheticCorpus,
+                                           synthetic_noise_pool,
+                                           synthetic_rir_pool)
+
+    return (SyntheticCorpus(seed=0, num_speakers=8, utts_per_speaker=6),
+            synthetic_rir_pool(), synthetic_noise_pool())
+
+
+def train_batch(seed: int, batch: int = None, window: float = None) -> dict:
+    """One batch of the recipe's training material, mixed on the fly."""
+    from css_tpu_torch.data.mixer import MixtureSynthesizer
+
+    corpus, rirs, noises = train_material()
+    window = window or TRAIN_WINDOW_SEC
+    ds = MixtureSynthesizer.build_dataset(corpus, {
+        "batch_size": batch or TRAIN_BATCH, "min_window_size": window,
+        "max_window_size": window, "rir_pool": rirs, "noise_pool": noises,
+        "seed": seed})
+    return {k: v for k, v in next(ds).items() if k not in ("ovl", "lens")}
+
+
+def make_trainer(torch, name: str, conf: dict, lr: float, dev,
+                 objective: str = "MSE"):
+    """A trainer with the recipe's optimiser on random weights from
+    TRAIN_SEED (``init_variables``)."""
+    from css_tpu_torch.models import build_model, from_jax, init_variables
+    from css_tpu_torch.objectives import build_objective
+    from css_tpu_torch.trainer.loop import Trainer
+    from css_tpu_torch.trainer.lr_schedule import LRSchedule
+
+    conf = dict(conf, mse_noise_weight=0.3)
+    model = build_model(name, conf)
+    model.load_state_dict(from_jax(model, *init_variables(model,
+                                                          TRAIN_SEED)))
+    return Trainer(model, build_objective(objective, conf), LRSchedule(lr),
+                   optim="adam", weight_decay=1e-2, grad_thresh=5.0,
+                   input_domain="time" if name == "ConvTasNet" else "stft",
+                   device=dev, seed=TRAIN_SEED)
+
+
+def step_ms(torch, trainer, batch, steps: int, warmup: int = 1):
+    """Median host ms of warm train steps, each ending in a synchronize,
+    and the losses of all steps."""
+    times, losses = [], []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+    return float(np.median(times)), losses
+
+
+def grads_of(torch, trainer):
+    return [p.grad.detach().clone() for p in trainer.model.parameters()]
+
+
+def rel_l2(torch, got, want) -> float:
+    num = torch.sqrt(sum(torch.sum(torch.square(g - w))
+                         for g, w in zip(got, want)))
+    den = torch.sqrt(sum(torch.sum(torch.square(w)) for w in want))
+    return float(num / den)
+
+
+def train_path(torch, dev, results, counters, stft_mag_cuda, istft_cuda,
+               lstm_cuda, mix):
+    """Phase 6 (module docstring); returns the train_steps record."""
+    import tempfile
+    from pathlib import Path
+
+    from css_tpu_torch.cli import train as train_cli
+    from css_tpu_torch.cli.separate import load_model
+    from css_tpu_torch.executor.pipeline import CssPipeline
+    from css_tpu_torch.models import state_dict_from_checkpoint
+    from css_tpu_torch.trainer.checkpoint import load_checkpoint, tree_leaves
+
+    sr = CONFIG["sampling_rate"]
+    frame, hop = main_shapes()["frame"], main_shapes()["hop"]
+    batch = train_batch(TRAIN_SEED)
+    b, n = batch["mix"].shape
+    audio_sec = b * n / sr
+
+    # K3 at the training shape: the stacked mix and sources of the batch
+    x = torch.as_tensor(np.concatenate([batch["mix"], batch["source1"],
+                                        batch["source2"]]), device=dev)
+    got = counted(stft_mag_cuda.stft_mag, 1, "stft_mag train",
+                  lambda: stft_mag_cuda.stft_mag(x, frame, hop))
+    want = stft_mag_cuda.stft_mag_plain(x, frame, hop)
+    torch.cuda.synchronize()
+    err = check_close("stft_mag train", got, want, KERNEL_ATOL, KERNEL_RTOL)
+    hann = torch.hann_window(frame, device=dev)
+
+    def lib_fn():
+        return torch.stft(x, frame, hop, window=hann, center=False,
+                          return_complex=True).abs()
+
+    bins, t = got.shape[2], got.shape[1]
+    bnd, by = bound_ms(x.shape[0] * t * (frame + rfft_flops(frame)
+                                         + 4 * bins),
+                       4.0 * (x.numel() + got.numel()))
+    k3 = {"shape": list(x.shape), "max_abs_err": err,
+          "ms": time_ms(torch, lambda: stft_mag_cuda.stft_mag(x, frame, hop)),
+          "device_ms": device_ms(torch, lambda: stft_mag_cuda.stft_mag(
+              x, frame, hop)),
+          "plain_ms": time_ms(torch, lambda: stft_mag_cuda.stft_mag_plain(
+              x, frame, hop)),
+          "library_ms": time_ms(torch, lib_fn),
+          "library_device_ms": device_ms(torch, lib_fn),
+          "graph_ms": graph_ms(torch, lambda: stft_mag_cuda.stft_mag(
+              x, frame, hop)),
+          "library_graph_ms": graph_ms(torch, lib_fn),
+          "bound_ms": bnd, "bound_by": by}
+    log(f"K3 stft_mag train {tuple(x.shape)}: {json.dumps(k3)}")
+    for r in results:
+        if r["name"] == "stft_mag":
+            r["train"] = k3
+    del x, got, want
+
+    # (a) K3 vs plain in one float32 step from one state
+    trainer = make_trainer(torch, "Conformer", {}, 1e-4, dev)
+    state0 = trainer.state()
+
+    def step_grads(plain: bool, which=batch):
+        trainer.load_state(state0)
+        trainer.generator.manual_seed(TRAIN_SEED)
+        if plain:
+            with plain_kernels(stft_mag_cuda, istft_cuda, lstm_cuda):
+                loss, _, norm = trainer.compute_grads(which)
+        else:
+            loss, _, norm = counted(stft_mag_cuda.stft_mag, 1, "train (a)",
+                                    lambda: trainer.compute_grads(which))
+        return float(loss.detach()), float(norm), grads_of(torch, trainer)
+
+    loss_k, norm_k, g_k = step_grads(False)
+    loss_p, norm_p, g_p = step_grads(True)
+    _, _, g_ctrl = step_grads(False, train_batch(TRAIN_SEED + 1))
+    l2 = rel_l2(torch, g_k, g_p)
+    l2_ctrl = rel_l2(torch, g_ctrl, g_p)
+    elem = max(float((a - c).abs().max() / max(float(c.abs().max()), 1e-30))
+               for a, c in zip(g_k, g_p))
+    check_a = {"loss_kernel": loss_k, "loss_plain": loss_p,
+               "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+               "grad_norm_rel": abs(norm_k - norm_p) / norm_p,
+               "grad_rel_l2": l2, "control_grad_rel_l2": l2_ctrl,
+               "max_elem_err_of_tensor_max": elem}
+    print("train_check_a " + json.dumps(check_a), flush=True)
+    if not (check_a["loss_rel"] <= TRAIN_LOSS_RTOL
+            and check_a["grad_norm_rel"] <= TRAIN_NORM_RTOL
+            and l2 <= TRAIN_GRAD_L2 and np.isfinite(loss_k)):
+        raise AssertionError(f"train step with K3 vs plain: {check_a}")
+    if not l2_ctrl > TRAIN_GRAD_L2:
+        raise AssertionError(f"the gradient gate passes another batch's "
+                             f"gradient ({l2_ctrl:.3e})")
+    del g_k, g_p, g_ctrl
+    trainer.load_state(state0)
+    f32_ms, _ = step_ms(torch, trainer, batch, 5, warmup=2)
+    del trainer, state0
+    torch.cuda.empty_cache()
+
+    # (b) descent in bf16 on one batch, and the lr 0 control
+    drops = {}
+    for lr in (DESCENT_LR, 0.0):
+        trainer = make_trainer(torch, "Conformer", {"bf16": True}, lr, dev)
+        ms, losses = step_ms(torch, trainer, batch, DESCENT_STEPS - 1)
+        drops[lr] = 1.0 - float(np.mean(losses[-5:])) / losses[0]
+        if lr:
+            bf16_ms, descent = ms, losses
+            kept = trainer
+        else:
+            del trainer
+    print("train_descent " + json.dumps({
+        "lr": DESCENT_LR, "steps": DESCENT_STEPS, "losses": descent,
+        "drop": drops[DESCENT_LR], "control_lr0_drop": drops[0.0],
+        "min_drop": DESCENT_MIN_DROP}), flush=True)
+    if not (drops[DESCENT_LR] >= DESCENT_MIN_DROP
+            and np.isfinite(descent).all()):
+        raise AssertionError(f"descent: loss drop {drops[DESCENT_LR]:.3f} < "
+                             f"{DESCENT_MIN_DROP}")
+    if drops[0.0] >= DESCENT_MIN_DROP:
+        raise AssertionError(f"descent control at lr 0 passes the gate "
+                             f"({drops[0.0]:.3f})")
+
+    # (d) a non-finite step on the descended trainer
+    before = kept.state()
+    bad = {k: v.copy() for k, v in batch.items()}
+    bad["mix"][0, 100] = np.nan
+    m = kept.train_step(bad)
+    after = kept.state()
+    same = all(np.array_equal(p, q) for p, q in zip(
+        tree_leaves(after.params) + tree_leaves(after.batch_stats)
+        + after.opt_state, tree_leaves(before.params)
+        + tree_leaves(before.batch_stats) + before.opt_state))
+    check_d = {"finite": bool(m["finite"]), "state_unchanged": same,
+               "step_before": before.step, "step_after": after.step}
+    print("train_check_d " + json.dumps(check_d), flush=True)
+    if m["finite"] or not same or after.step != before.step + 1:
+        raise AssertionError(f"non-finite step: {check_d}")
+    del kept, before, after
+    torch.cuda.empty_cache()
+
+    # timings: the full-width BLSTM, bf16 and float32
+    blstm_ms = {}
+    for dtype_name, conf in (("bf16", {"bf16": True}), ("float32", {})):
+        trainer = make_trainer(torch, "BLSTM", conf, 1e-4, dev)
+        blstm_ms[dtype_name] = step_ms(torch, trainer, batch, 3)[0]
+        del trainer
+        torch.cuda.empty_cache()
+
+    # (e) Conv-TasNet at its default width, float32 SI-SNR
+    from css_tpu_torch.models.conv_tasnet import DEFAULT_CONV_TASNET_CONF
+
+    tas_conf = {f"conv_tasnet_{k}": v
+                for k, v in DEFAULT_CONV_TASNET_CONF.items()}
+    trainer = make_trainer(torch, "ConvTasNet", tas_conf, 1e-4, dev,
+                           objective="SNR")
+    tas_batch = {k: v[:4] for k, v in batch.items()}
+    tas_ms, tas_losses = step_ms(torch, trainer, tas_batch, 3)
+    if not np.isfinite(tas_losses).all():
+        raise AssertionError(f"Conv-TasNet losses {tas_losses}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) the recipe's run through cli.train, counts reset just before
+    with tempfile.TemporaryDirectory() as tmp:
+        expdir = Path(tmp) / "exp"
+        for c in counters:
+            c.launches = c.plain_routes = 0
+        t0 = time.perf_counter()
+        trainer = train_cli.main(RECIPE_ARGS + [
+            "--expdir", str(expdir), "--num-epochs", str(RECIPE_EPOCHS),
+            "--batches-per-epoch", str(RECIPE_BATCHES),
+            "--validate-batches", str(RECIPE_VALID), "--keep-best",
+            "--init", CHECKPOINT, "--device", "cuda"])
+        recipe_sec = time.perf_counter() - t0
+        counts = {c.__name__: c.launches for c in counters}
+        routes = {c.__name__: c.plain_routes for c in counters}
+        expect = {"stft_mag": RECIPE_EPOCHS * (RECIPE_BATCHES
+                                               + RECIPE_VALID),
+                  "istft": 0, "lstm_fused": 0}
+        if counts != expect or any(routes.values()):
+            raise AssertionError(f"recipe run: launches {counts}, plain "
+                                 f"routes {routes}, expected {expect}")
+        files = sorted(p.name for p in expdir.iterdir())
+        want_files = sorted([f"{e}.1.mdl" for e in range(1, RECIPE_EPOCHS
+                                                         + 1)]
+                            + ["best.1.mdl", "conf.1.json", "train.1.jsonl"])
+        with open(expdir / "train.1.jsonl") as fh:
+            records = [json.loads(line) for line in fh]
+        if files != want_files or len(records) != RECIPE_EPOCHS or not all(
+                np.isfinite(r["loss"]) for r in records):
+            raise AssertionError(f"recipe run wrote {files}, {records}")
+        last = expdir / f"{RECIPE_EPOCHS}.1.mdl"
+        ckpt = load_checkpoint(last)
+        reloaded = state_dict_from_checkpoint("Conformer", ckpt)
+        own = trainer.model.state_dict()
+        bit_equal = set(reloaded) == set(own) and all(
+            torch.equal(reloaded[k], own[k].cpu()) for k in own)
+        if not bit_equal or ckpt["step"] != RECIPE_EPOCHS * RECIPE_BATCHES:
+            raise AssertionError("the trained checkpoint does not reload "
+                                 "bit-equal")
+        del trainer
+        model = load_model(str(last))
+        outs = CssPipeline(model, CONFIG, device="cuda").process(mix)
+    if len(outs) != 2 or any(o.shape != mix.shape or not np.isfinite(o).all()
+                             or abs(float(np.abs(o).max()) - 0.9) > 1e-4
+                             for o in outs):
+        raise AssertionError(f"the trained checkpoint's streams are bad: "
+                             f"{[(o.shape, float(np.abs(o).max())) for o in outs]}")
+    for r in results:
+        r["launches_by_path"]["conformer_train"] = counts[r["name"]]
+    print("train_check_c " + json.dumps({
+        "seconds": recipe_sec, "launches": counts, "plain_routes": routes,
+        "files": files, "losses": [r["loss"] for r in records],
+        "reload_bit_equal": bit_equal, "separated": True}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {
+        "batch": b, "window_s": n / sr,
+        "conformer": {"bf16_ms": bf16_ms, "float32_ms": f32_ms,
+                      "bf16_audio_sec_per_s": audio_sec / bf16_ms * 1e3,
+                      "float32_audio_sec_per_s": audio_sec / f32_ms * 1e3},
+        "blstm": {"bf16_ms": blstm_ms["bf16"],
+                  "float32_ms": blstm_ms["float32"],
+                  "bf16_audio_sec_per_s": audio_sec / blstm_ms["bf16"] * 1e3,
+                  "float32_audio_sec_per_s":
+                      audio_sec / blstm_ms["float32"] * 1e3},
+        "conv_tasnet": {"batch": 4, "float32_ms": tas_ms,
+                        "losses": tas_losses}}
 
 
 def main() -> int:
@@ -1078,7 +1475,23 @@ def main() -> int:
           f"(atol {PIPE_ATOL}); (a) vs (b) SI-SNR {bf16_snr7:.2f} dB (floor "
           f"{BF16_SI_SNR_DB}); SI-SNRi of (b) {si_snri:.2f} dB (floor "
           f"{SI_SNRI_7CH_DB})", flush=True)
+    del model, pipe
     phase("conformer 7ch path", t0)
+
+    # ------------------------------------------- 6. Conformer train path
+    t0 = time.perf_counter()
+    steps = train_path(torch, dev, results, counters, stft_mag_cuda,
+                       istft_cuda, lstm_cuda, mix)
+    print("train_steps " + json.dumps(steps), flush=True)
+    print(f"main_path conformer_train: batch {steps['batch']} x "
+          f"{steps['window_s']:.1f} s; Conformer bf16 "
+          f"{steps['conformer']['bf16_ms']:.1f} ms/step "
+          f"({steps['conformer']['bf16_audio_sec_per_s']:.1f} audio-sec/s), "
+          f"float32 {steps['conformer']['float32_ms']:.1f} ms/step; BLSTM "
+          f"bf16 {steps['blstm']['bf16_ms']:.1f} ms/step, float32 "
+          f"{steps['blstm']['float32_ms']:.1f} ms/step; {smi_line}",
+          flush=True)
+    phase("conformer train path", t0)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi_line, flush=True)

@@ -1,1 +1,1 @@
-"""Audio I/O."""
+"""Audio I/O, corpora, on-the-fly mixture synthesis and prefetching."""

@@ -1,4 +1,5 @@
-"""BLSTM mask estimator, offline forward (bidirectional, or causal).
+"""BLSTM mask estimator, offline (bidirectional, or causal), for inference
+and training.
 
 Port of ``css_tpu/models/blstm.py``: utterance MVN (running MVN when
 causal), linear embedding + LayerNorm + ReLU, N (bi)directional LSTM
@@ -14,7 +15,13 @@ when the checkpoint's conf says ``bf16``) is applied where the JAX package
 applies it, and LayerNorm normalises in float32 (``conformer.LayerNorm``).
 ``causal=True`` drops the backward direction and widens the forward LSTM
 to the full layer width. Streaming (``stream``, carried (h, c)) waits for
-ROADMAP.md Queue 1 item 9; training for item 8.
+ROADMAP.md Queue 1 item 9.
+
+Training mode (``model.train()``) runs the recurrence as a plain autograd
+loop with the JAX package's scan numerics (``lstm_scan(differentiable=
+True)``; K2 has no backward, and the JAX package trains through the
+scan's VJP, not its Pallas kernel), and adds dropout after the embedding's
+LayerNorm and after each layer's LayerNorm (``conformer.Dropout``).
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from css_tpu_torch.models.conformer import Dense, LayerNorm
+from css_tpu_torch.models.conformer import Dense, Dropout, LayerNorm
 from css_tpu_torch.ops.features import cumulative_mvn, mvn
 from css_tpu_torch.ops import lstm_cuda
 
@@ -34,23 +41,34 @@ from css_tpu_torch.ops import lstm_cuda
 def lstm_scan(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
               reverse: bool = False, differentiable: bool = False,
               state=None, return_state: bool = False) -> torch.Tensor:
-    """The eval-path LSTM over precomputed input projections: xw (B, T, 4h),
-    w_hh (h, 4h) -> hs (B, T, h), always through ``lstm_fused``."""
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable LSTM (training) is not ported yet: ROADMAP.md "
-            "Queue 1 item 8")
+    """An LSTM over precomputed input projections: xw (B, T, 4h), w_hh
+    (h, 4h) -> hs (B, T, h), gate order i, f, g, o. The eval path goes
+    through ``lstm_fused`` (K2); ``differentiable=True`` (training) runs
+    the JAX package's scan step as a loop that autograd records: gates,
+    c and h in xw's dtype (``css_tpu/models/blstm.py:57-76``)."""
     if state is not None or return_state:
         raise NotImplementedError(
             "carried LSTM state (streaming) is not ported yet: ROADMAP.md "
             "Queue 1 item 9")
-    return lstm_cuda.lstm_fused(xw, w_hh, hidden, reverse=reverse)
+    if not differentiable:
+        return lstm_cuda.lstm_fused(xw, w_hh, hidden, reverse=reverse)
+    b, t, _ = xw.shape
+    h = xw.new_zeros((b, hidden))
+    c = xw.new_zeros((b, hidden))
+    hs = [None] * t
+    for ti in (range(t - 1, -1, -1) if reverse else range(t)):
+        i, f, g, o = (xw[:, ti] + h @ w_hh).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs[ti] = h
+    return torch.stack(hs, dim=1)
 
 
 class BiLSTMLayer(nn.Module):
-    """One (bi)directional LSTM + LayerNorm; dropout is off in eval."""
+    """One (bi)directional LSTM + LayerNorm + dropout (off in eval)."""
 
-    def __init__(self, h_dim: int, causal: bool = False):
+    def __init__(self, h_dim: int, causal: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.hidden = h_dim if causal else h_dim // 2
         self.dirs = ("fwd",) if causal else ("fwd", "bwd")
@@ -62,6 +80,7 @@ class BiLSTMLayer(nn.Module):
             self.register_parameter(f"b_{d}", nn.Parameter(
                 torch.zeros(4 * self.hidden)))
         self.layer_norm = LayerNorm(h_dim)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         outs = []
@@ -70,9 +89,10 @@ class BiLSTMLayer(nn.Module):
             w_hh = getattr(self, f"w_hh_{d}").to(x.dtype)
             xw = x @ w_ih.t() + getattr(self, f"b_{d}").to(x.dtype)
             outs.append(lstm_scan(xw, w_hh.t().contiguous(), self.hidden,
-                                  reverse=d == "bwd"))
+                                  reverse=d == "bwd",
+                                  differentiable=self.training))
         x = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
-        return self.layer_norm(x)
+        return self.dropout(self.layer_norm(x))
 
 
 class BLSTM(nn.Module):
@@ -83,7 +103,7 @@ class BLSTM(nn.Module):
                  num_noise: int = 1, hidden_dim: int = 1024,
                  num_layers: int = 3,
                  compute_dtype: torch.dtype = torch.float32,
-                 causal: bool = False):
+                 causal: bool = False, dropout_rate: float = 0.1):
         super().__init__()
         self.num_bins = num_bins
         self.num_spk = num_spk
@@ -92,8 +112,10 @@ class BLSTM(nn.Module):
         self.causal = causal
         self.embed_linear = Dense(idim, hidden_dim)
         self.embed_norm = LayerNorm(hidden_dim)
+        self.embed_dropout = Dropout(dropout_rate)
         self.encoders = nn.ModuleList(
-            BiLSTMLayer(hidden_dim, causal) for _ in range(num_layers))
+            BiLSTMLayer(hidden_dim, causal, dropout_rate)
+            for _ in range(num_layers))
         self.linear = Dense(hidden_dim, num_bins * (num_spk + num_noise))
 
     @classmethod
@@ -109,13 +131,14 @@ class BLSTM(nn.Module):
             compute_dtype=(torch.bfloat16 if conf.get("bf16")
                            else torch.float32),
             causal=bool(conf.get("blstm_causal", False)),
+            dropout_rate=float(conf.get("blstm_dropout_rate", 0.1)),
         )
 
     def forward(self, f) -> Tuple[torch.Tensor, torch.Tensor]:
         n_src = self.num_spk + self.num_noise
         x = cumulative_mvn(f)[0] if self.causal else mvn(f, dim=-2)
         x = self.embed_linear(x.to(self.compute_dtype))
-        x = F.relu(self.embed_norm(x))
+        x = F.relu(self.embed_dropout(self.embed_norm(x)))
         for enc in self.encoders:
             x = enc(x)
         masks = F.relu(self.linear(x)).float()
@@ -163,8 +186,10 @@ def _truncated_normal(rng: np.random.Generator, shape, std: float):
 
 def _lecun_normal(rng, shape):
     """flax.linen.initializers.lecun_normal: fan_in is the second-to-last
-    axis, truncated normal with the truncation's std correction."""
-    return _truncated_normal(rng, shape, np.sqrt(1.0 / shape[-2])
+    axis times the receptive field (the leading axes of a conv kernel),
+    truncated normal with the truncation's std correction."""
+    fan_in = shape[-2] * int(np.prod(shape[:-2]))
+    return _truncated_normal(rng, shape, np.sqrt(1.0 / fan_in)
                              / 0.87962566103423978).astype(np.float32)
 
 

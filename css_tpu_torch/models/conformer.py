@@ -1,10 +1,21 @@
-"""Conformer mask estimator, forward only (not causal).
+"""Conformer mask estimator, offline (not causal), for inference and
+training.
 
 Port of ``css_tpu/models/conformer.py:41-468``: utterance MVN, linear
 embedding + LayerNorm + ReLU, N Conformer blocks (Macaron half-FFNs,
 relative-position MHSA, scalar-GLU / depthwise-conv / BatchNorm conv
 module, post-LN) and a ReLU mask head. Submodule names follow the Flax
-modules so ``params_from_jax`` is a mechanical renaming.
+modules so ``params_from_jax`` (and ``models.to_jax``, back) are
+mechanical renamings.
+
+Training mode (``model.train()``) follows the Flax model's ``train=True``:
+dropout at the JAX package's sites (after the embedding's LayerNorm, in
+each FFN after the ReLU and after the second Dense, on the attention
+probabilities and after ``linear_out``, at the end of the conv module),
+drawn from the ``torch.Generator`` that ``set_dropout_generator`` hands
+every ``Dropout``; and BatchNorm on the batch's statistics with Flax's
+running update (see ``BatchNorm``). ``model.eval()`` gives the inference
+forward.
 
 Parameters stay float32; ``compute_dtype`` (bfloat16 when the checkpoint's
 conf says ``bf16``) is applied where the JAX package applies it:
@@ -49,41 +60,94 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis with running statistics,
-    in Flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias, in
-    float32, returning the input dtype."""
+    """BatchNorm over the last axis in Flax's order: (x - mean) *
+    (rsqrt(var + eps) * scale) + bias, in float32, returning the input
+    dtype.
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    Eval: the running statistics. Training (Flax ``nn.BatchNorm(momentum=
+    0.9)`` with ``use_running_average=False``): the batch's mean and its
+    biased variance over every axis but the last, E[x^2] - E[x]^2 clipped
+    at 0 (Flax's fast variance), and the running statistics move as
+    ``ra = 0.9 ra + 0.1 batch``, the variance biased too. This is not
+    ``torch.nn.BatchNorm1d``, whose running variance is unbiased."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
+        xf = x.float()
+        if self.training:
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp(torch.square(xf).mean(dims)
+                              - torch.square(mean), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Flax's dropout: in training, x / keep where a Bernoulli(keep) draw
+    is 1, else 0; the identity in eval or at rate 0. The draws come from
+    ``self.generator``, which ``set_dropout_generator`` sets (a training
+    forward with rate > 0 and no generator raises)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in training needs a torch.Generator: "
+                               "call set_dropout_generator(model, gen)")
+        keep = 1.0 - self.rate
+        draw = torch.empty(x.shape, device=x.device).bernoulli_(
+            keep, generator=self.generator)
+        return torch.where(draw.bool(), x / keep, torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Hand ``generator`` to every Dropout of ``model``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class FeedForward(nn.Module):
-    """Pre-LN FFN: w2(relu(w1(LN(x))))."""
+    """Pre-LN FFN: drop(w2(drop(relu(w1(LN(x))))))."""
 
-    def __init__(self, d_model: int, d_inner: int):
+    def __init__(self, d_model: int, d_inner: int, dropout_rate: float = 0.0):
         super().__init__()
         self.layer_norm = LayerNorm(d_model)
         self.w1 = Dense(d_model, d_inner)
         self.w2 = Dense(d_inner, d_model)
+        self.drop = Dropout(dropout_rate)
 
     def forward(self, x):
-        return self.w2(F.relu(self.w1(self.layer_norm(x))))
+        x = F.relu(self.w1(self.layer_norm(x)))
+        return self.drop(self.w2(self.drop(x)))
 
 
 class RelPosMultiHeadAttention(nn.Module):
     """MHSA with a relative-position key term:
     scores = (q k^T + q pos_k^T) / sqrt(d_k)."""
 
-    def __init__(self, n_head: int, n_feat: int):
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
         super().__init__()
         self.n_head = n_head
         self.n_feat = n_feat
@@ -92,6 +156,7 @@ class RelPosMultiHeadAttention(nn.Module):
         self.linear_k = Dense(n_feat, n_feat)
         self.linear_v = Dense(n_feat, n_feat)
         self.linear_out = Dense(n_feat, n_feat)
+        self.drop = Dropout(dropout_rate)
 
     def _heads(self, x):
         b, t, _ = x.shape
@@ -110,19 +175,21 @@ class RelPosMultiHeadAttention(nn.Module):
             scores = scores + torch.einsum("bhtd,tsd->bhts", q,
                                            pos_k.to(q.dtype))
         scores = scores / math.sqrt(d_k)
-        attn = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        attn = self.drop(torch.softmax(scores.float(), dim=-1).to(q.dtype))
         out = attn @ v  # (B, h, T, d)
         b, _, t, _ = q.shape
-        return self.linear_out(out.transpose(1, 2).reshape(b, t, self.n_feat))
+        return self.drop(self.linear_out(
+            out.transpose(1, 2).reshape(b, t, self.n_feat)))
 
 
 class ConvModule(nn.Module):
     """Scalar GLU -> depthwise conv over time -> BatchNorm -> ReLU ->
-    scalar affine. The reference's "pointwise" convs are Conv2d(1, 2, 1) /
-    Conv2d(1, 1, 1) over a singleton channel, i.e. scalar affine maps:
-    GLU(x) = (w0 x + b0) * sigmoid(w1 x + b1)."""
+    scalar affine -> dropout. The reference's "pointwise" convs are
+    Conv2d(1, 2, 1) / Conv2d(1, 1, 1) over a singleton channel, i.e. scalar
+    affine maps: GLU(x) = (w0 x + b0) * sigmoid(w1 x + b1)."""
 
-    def __init__(self, input_dim: int, kernel_size: int):
+    def __init__(self, input_dim: int, kernel_size: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.layer_norm = LayerNorm(input_dim)
         self.pw1_w = nn.Parameter(torch.ones(2))
@@ -133,6 +200,7 @@ class ConvModule(nn.Module):
         self.bn = BatchNorm(input_dim)
         self.pw2_w = nn.Parameter(torch.ones(1))
         self.pw2_b = nn.Parameter(torch.zeros(1))
+        self.drop = Dropout(dropout_rate)
 
     def forward(self, x):
         dt = x.dtype
@@ -143,19 +211,20 @@ class ConvModule(nn.Module):
                      self.dw_conv.bias.to(dt), padding=self.dw_conv.padding,
                      groups=self.dw_conv.groups).transpose(1, 2)
         x = F.relu(self.bn(x))
-        return self.pw2_w.to(dt)[0] * x + self.pw2_b.to(dt)[0]
+        return self.drop(self.pw2_w.to(dt)[0] * x + self.pw2_b.to(dt)[0])
 
 
 class EncoderLayer(nn.Module):
     """Conformer block with Macaron residuals and post-LN."""
 
     def __init__(self, d_model: int, n_head: int, d_ffn: int,
-                 kernel_size: int):
+                 kernel_size: int, dropout_rate: float = 0.0):
         super().__init__()
-        self.feed_forward_in = FeedForward(d_model, d_ffn)
-        self.self_attn = RelPosMultiHeadAttention(n_head, d_model)
-        self.conv = ConvModule(d_model, kernel_size)
-        self.feed_forward_out = FeedForward(d_model, d_ffn)
+        self.feed_forward_in = FeedForward(d_model, d_ffn, dropout_rate)
+        self.self_attn = RelPosMultiHeadAttention(n_head, d_model,
+                                                  dropout_rate)
+        self.conv = ConvModule(d_model, kernel_size, dropout_rate)
+        self.feed_forward_out = FeedForward(d_model, d_ffn, dropout_rate)
         self.layer_norm = LayerNorm(d_model)
 
     def forward(self, x, pos_k):
@@ -172,30 +241,37 @@ class ConformerEncoder(nn.Module):
     def __init__(self, idim: int = 257, attention_dim: int = 256,
                  attention_heads: int = 4, linear_units: int = 1024,
                  num_blocks: int = 16, kernel_size: int = 33,
-                 relative_pos_emb: bool = True, maxlen: int = 1000):
+                 relative_pos_emb: bool = True, maxlen: int = 1000,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.maxlen = maxlen
         self.embed_linear = Dense(idim, attention_dim)
         self.embed_norm = LayerNorm(attention_dim)
+        self.embed_drop = Dropout(dropout_rate)
         self.pe_k = (nn.Parameter(torch.zeros(
             2 * maxlen, attention_dim // attention_heads))
             if relative_pos_emb else None)
         self.encoders = nn.ModuleList([
             EncoderLayer(attention_dim, attention_heads, linear_units,
-                         kernel_size)
+                         kernel_size, dropout_rate)
             for _ in range(num_blocks)])
 
     def rel_pos(self, t: int) -> torch.Tensor:
         """pe_k[clip(t - s, -maxlen, maxlen-1) + maxlen] -> (T, T, d_k): a
         plain gather (the one-hot matmul of ``_relpos_band`` is a TPU
-        device; both are exact)."""
+        device; both are exact). Differentiable: its backward is
+        ``index_put_(accumulate=True)`` into pe_k's shape, which sums the
+        T-|offset| copies of each offset. On the card that runs PyTorch's
+        sort-based kernel, which adds each index's duplicates in a fixed
+        order: deterministic from run to run (held bit-equal by a card test
+        in tests/test_torch_cuda.py); on the CPU it runs serially."""
         pos = torch.arange(t, device=self.pe_k.device)
         rel = torch.clamp(pos[:, None] - pos[None, :], -self.maxlen,
                           self.maxlen - 1) + self.maxlen
         return self.pe_k[rel]
 
     def forward(self, xs):
-        xs = F.relu(self.embed_norm(self.embed_linear(xs)))
+        xs = F.relu(self.embed_drop(self.embed_norm(self.embed_linear(xs))))
         pos_k = self.rel_pos(xs.shape[1]) if self.pe_k is not None else None
         for enc in self.encoders:
             xs = enc(xs, pos_k)
@@ -211,7 +287,8 @@ class Conformer(nn.Module):
                  attention_heads: int = 4, linear_units: int = 1024,
                  num_blocks: int = 16, kernel_size: int = 33,
                  relative_pos_emb: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.num_bins = num_bins
         self.num_spk = num_spk
@@ -219,7 +296,7 @@ class Conformer(nn.Module):
         self.compute_dtype = compute_dtype
         self.conformer = ConformerEncoder(
             idim, attention_dim, attention_heads, linear_units, num_blocks,
-            kernel_size, relative_pos_emb)
+            kernel_size, relative_pos_emb, dropout_rate=dropout_rate)
         self.linear = Dense(attention_dim, num_bins * (num_spk + num_noise))
 
     @classmethod
@@ -242,6 +319,7 @@ class Conformer(nn.Module):
             relative_pos_emb=bool(conf.get("conformer_relative_pos_emb",
                                            True)),
             compute_dtype=torch.bfloat16 if conf.get("bf16") else torch.float32,
+            dropout_rate=float(conf.get("conformer_dropout_rate", 0.1)),
         )
 
     def forward(self, f) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -316,3 +394,4 @@ def params_from_jax(params: Dict, batch_stats: Dict = None
             key.rsplit(".", 1)[-1]]
         sd[key.rsplit(".", 1)[0] + "." + stat] = tensor(arr)
     return sd
+

@@ -1,1 +1,1 @@
-"""Checkpoint reading (saving waits for the trainer slice)."""
+"""Training: the LR schedule, the trainer loop and npz checkpoints."""

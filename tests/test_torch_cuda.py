@@ -367,3 +367,38 @@ def test_lstm_kernel_refuses_what_it_does_not_take(card):
     assert lstm_cuda.lstm_fused.plain_routes == routes + 1
     torch.testing.assert_close(got, lstm_cuda.lstm_plain(wide, w_wide, 1536),
                                atol=0, rtol=0)
+
+
+# the training path's K3 shapes: one launch over the row-stacked mix and
+# two sources of a batch of 32 (96 rows), at every window bucket of the
+# recipe (2.0-4.0 s by 0.5) and the two of --align-window-frames 128
+@pytest.mark.parametrize("n", [32000, 40000, 48000, 56000, 64000, 33024,
+                               65792])
+def test_stft_mag_kernel_at_the_training_buckets(card, n):
+    x = _signal((96, n), n, card)
+    before = stft_mag_cuda.stft_mag.launches
+    got = stft_mag_cuda.stft_mag(x)
+    torch.cuda.synchronize()
+    assert stft_mag_cuda.stft_mag.launches == before + 1
+    want = stft_mag_cuda.stft_mag_plain(x)
+    assert got.shape == want.shape == (96, (n - 512) // 256 + 1, 257)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_relative_position_gradient_is_deterministic(card):
+    """The Conformer's relative-position gather differentiates into pe_k
+    by index_put_(accumulate=True); on the card two backward passes at the
+    longest training window give bit-equal gradients."""
+    from css_tpu_torch.models.conformer import ConformerEncoder
+
+    enc = ConformerEncoder(num_blocks=1).to(card)
+    torch.nn.init.normal_(enc.pe_k)
+    g = torch.Generator(card).manual_seed(0)
+    upstream = torch.randn((249, 249, 64), generator=g, device=card)
+    grads = []
+    for _ in range(2):
+        enc.pe_k.grad = None
+        (enc.rel_pos(249) * upstream).sum().backward()
+        grads.append(enc.pe_k.grad.clone())
+    assert torch.equal(grads[0], grads[1])
+    assert grads[0].abs().sum() > 0

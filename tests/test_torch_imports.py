@@ -38,9 +38,14 @@ print(" ".join(names))
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.strip().splitlines()
     assert int(count) >= 20
-    # the 7ch slice's modules are among them
+    # the 7ch slice's modules and the training slice's are among them
     for name in ("executor.doa", "executor.reanchor", "ops.mvdr",
-                 "data.spatial"):
+                 "data.spatial", "ops.pit", "objectives", "objectives.base",
+                 "objectives.mse", "objectives.snr", "objectives.masksnr",
+                 "trainer.lr_schedule", "trainer.loop", "trainer.checkpoint",
+                 "models.conv_tasnet", "data.corpus", "data.augment",
+                 "data.mixer", "data.loader", "utils.logging", "cli.train",
+                 "cli.combine"):
         assert "css_tpu_torch." + name in names.split()
 
 

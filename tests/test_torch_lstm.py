@@ -100,11 +100,14 @@ def test_kernel_path_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"differentiable": True}, "item 8"),
+    ({"differentiable": True, "return_state": True}, "item 9"),
     ({"return_state": True}, "item 9"),
     ({"state": (torch.zeros(2, 8), torch.zeros(2, 8))}, "item 9"),
 ])
 def test_scan_refuses_training_and_carried_state(kwargs, item):
+    """Carried state (streaming, item 9) is refused, in training too; the
+    differentiable scan itself (training) is tests/test_torch_train_models
+    .py's."""
     xw, w_hh = _inputs(2, 3, 8, seed=0)
     with pytest.raises(NotImplementedError, match=item):
         lstm_scan(torch.as_tensor(xw), torch.as_tensor(w_hh), 8, **kwargs)
