@@ -78,6 +78,37 @@ Phases, each timed on its own line:
      Printed: the median warm train-step ms and train audio-sec/s (batch x
      window seconds / step seconds) in bf16 and float32 for the Conformer
      and a full-width BLSTM (hidden 1024, 3 layers).
+  7. Conformer 7ch train path: the committed 7ch checkpoint at full width
+     and depth (1799 inputs: channel 0's magnitude and 6 IPD pairs) on
+     batches of 32 x 4.0 s rendered on the 7-mic array (``SpatialMixer``
+     over the CLI's default corpus, sensor noise 0.003), K3 featurizing
+     channel 0 and the sources in one launch a step. First K3 at that
+     shape against its plain version, with its times and bound. Then:
+       (a) kernel vs plain, float32: one step of the 7ch model, the train
+           path's gates and control batch;
+       (b) device against host mixing of the same recipes (the 1ch mixer
+           with RIRs and noise; the spatial mixer at sensor noise 0): the
+           sources bit-equal, the mixtures within MIX_ATOL; with sensor
+           noise on, its standard deviation within NOISE_STD_RTOL of the
+           level and one recipe materialised twice bit-equal;
+       (c) the 7ch recipe through ``cli.train`` (--spatialize-channels 7
+           --device-mix --probe-sessions 2 --average-probe-top 2, 3 epochs
+           of 2 batches, warm-started from the 7ch checkpoint, launch
+           counts reset before and read after: K3 once per train and
+           validation batch and per probe call, K1 once per probe call, no
+           plain route): finite losses and probes, avgtop.1.mdl written,
+           and the last checkpoint reloads bit-equal;
+       (d) the held-out probe of the flagship in float32 within
+           PROBE_ATOL_DB of css_tpu's value on the CPU, one K3 and one K1
+           launch a call, and the 7ch checkpoint's spatial probe; K3 over
+           the probe's windows and K1 over its resynthesis rows against
+           their plain versions, with times and bounds;
+       (e) the native mixing core (built by g++ in phase 1): the mixer's
+           native path against the numpy path, and no fall-back to numpy
+           in the whole run.
+     Printed: the 7ch train step's median ms in bf16 and float32 on
+     host-mixed and on device-mixed batches, and the probe's seconds per
+     call, each beside the card's name and power limit.
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and last the result line ``{"ok": true, "device": {...}}``. Progress goes
 to stderr. Any failed check raises, and the exit code is then non-zero;
@@ -240,6 +271,47 @@ RECIPE_ARGS = ["--synthetic-data", "--synthetic-rirs", "--batch-size", "64",
                "--mse-noise-weight", "0.3", "--bf16", "--keep-every", "20",
                "--keep-last", "2"]
 RECIPE_EPOCHS, RECIPE_BATCHES, RECIPE_VALID = 2, 4, 2
+# The 7ch train path: the committed 7ch checkpoint at full width (1799
+# inputs: channel 0's 257 bins and 6 IPD pairs) on batches of 32 x 4.0 s
+# rendered on the 7-mic array (SpatialMixer over the CLI's default
+# synthetic corpus, sensor noise SENSOR_NOISE); weights from the
+# checkpoint, the recipe's optimiser and MSE objective. Gate (a) is the
+# train path's (TRAIN_*).
+TRAIN_7CH_SEED = 20261020
+IPD_7CH = CONFIG_7CH["separation"]["ipd"]
+# (b) device against host mixing of the same recipes: the sources are
+# slices of the same utterances (bit-equal); the mixtures go through float32
+# FFTs (reverb; the phase ramps and one irFFT) on the card and in numpy on
+# the host. A CPU rehearsal at this shape (torch's CPU FFT against the
+# host) gave 1.1e-7 on mixtures of peak ~0.3; 1e-5 leaves room for
+# cuFFT's rounding. With sensor noise on, its standard deviation over the
+# batch within NOISE_STD_RTOL of the level, and one recipe materialised
+# twice bit-equal.
+MIX_ATOL, NOISE_STD_RTOL = 1e-5, 0.05
+# (c) the 7ch recipe through cli.train on the CLI's default corpus, 3
+# epochs of 2 batches and 1 validation batch, device-mixed, with the probe
+# on 2 sessions and the average of the 2 best-probed epochs, warm-started
+# from the 7ch checkpoint
+RECIPE_7CH_ARGS = [
+    "--synthetic-data", "--spatialize-channels", "7",
+    "--sensor-noise-level", str(SENSOR_NOISE), "--device-mix",
+    "--probe-sessions", "2", "--average-probe-top", "2", "--model",
+    "Conformer", "--objective", "MSE", "--optim", "adam", "--lr", "1e-4",
+    "--weight-decay", "1e-2", "--grad-thresh", "5.0", "--warmup", "20000",
+    "--decay", "1e-5", "--mse-noise-weight", "0.3", "--bf16",
+    "--batch-size", str(TRAIN_BATCH), "--min-window-size", "4.0",
+    "--max-window-size", "4.0", "--keep-best", "--keep-every", "20",
+    "--keep-last", "2", "--num-workers", "2"]
+RECIPE_7CH_EPOCHS, RECIPE_7CH_BATCHES, RECIPE_7CH_VALID = 3, 2, 1
+# (d) the held-out probe of the flagship in float32, mask mode, on its own
+# training run's probe material (the formant voice up to 400 Hz, 6
+# speakers x 4 utterances, seed 456), 2 sessions of 12 s: css_tpu's
+# HeldOutProbe gave +3.7355947494506836 dB on the CPU
+# (scripts/torch_probe_reference.py; the port's on the CPU: +3.7321 dB).
+PROBE_CORPUS = dict(num_speakers=6, utts_per_speaker=4, seed=456,
+                    f0_max=400.0, voice="formant")
+PROBE_SESSIONS, PROBE_SESSION_SEC = 2, 12.0
+PROBE_REFERENCE_DB, PROBE_ATOL_DB = 3.7355947494506836, 0.1
 
 
 def log(*args):
@@ -710,14 +782,15 @@ def make_trainer(torch, name: str, conf: dict, lr: float, dev,
                    device=dev, seed=TRAIN_SEED)
 
 
-def step_ms(torch, trainer, batch, steps: int, warmup: int = 1):
+def step_ms(torch, trainer, batch, steps: int, warmup: int = 1, dmix=None):
     """Median host ms of warm train steps, each ending in a synchronize,
-    and the losses of all steps."""
+    and the losses of all steps (an encoded recipe batch with its
+    DeviceMixer ``dmix``)."""
     times, losses = [], []
     for i in range(warmup + steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        m = trainer.train_step(batch)
+        m = trainer.train_step(batch, dmix)
         torch.cuda.synchronize()
         if i >= warmup:
             times.append((time.perf_counter() - t) * 1e3)
@@ -734,6 +807,117 @@ def rel_l2(torch, got, want) -> float:
                          for g, w in zip(got, want)))
     den = torch.sqrt(sum(torch.sum(torch.square(w)) for w in want))
     return float(num / den)
+
+
+def k3_record(torch, stft_mag_cuda, x, frame, hop, label):
+    """K3 on x (rows, N): launched once against its plain version, its
+    event, device and CUDA-graph times beside the plain version's and
+    torch.stft(...).abs()'s, and its bound: per frame a window multiply,
+    a real FFT and |.| of every bin; the signal read once, the magnitudes
+    written once."""
+    got = counted(stft_mag_cuda.stft_mag, 1, label,
+                  lambda: stft_mag_cuda.stft_mag(x, frame, hop))
+    want = stft_mag_cuda.stft_mag_plain(x, frame, hop)
+    torch.cuda.synchronize()
+    err = check_close(label, got, want, KERNEL_ATOL, KERNEL_RTOL)
+    hann = torch.hann_window(frame, device=x.device)
+
+    def lib_fn():
+        return torch.stft(x, frame, hop, window=hann, center=False,
+                          return_complex=True).abs()
+
+    bins, t = got.shape[2], got.shape[1]
+    bnd, by = bound_ms(x.shape[0] * t * (frame + rfft_flops(frame)
+                                         + 4 * bins),
+                       4.0 * (x.numel() + got.numel()))
+    rec = {"shape": list(x.shape), "max_abs_err": err,
+           "ms": time_ms(torch, lambda: stft_mag_cuda.stft_mag(x, frame,
+                                                               hop)),
+           "device_ms": device_ms(torch, lambda: stft_mag_cuda.stft_mag(
+               x, frame, hop)),
+           "plain_ms": time_ms(torch, lambda: stft_mag_cuda.stft_mag_plain(
+               x, frame, hop)),
+           "library_ms": time_ms(torch, lib_fn),
+           "library_device_ms": device_ms(torch, lib_fn),
+           "graph_ms": graph_ms(torch, lambda: stft_mag_cuda.stft_mag(
+               x, frame, hop)),
+           "library_graph_ms": graph_ms(torch, lib_fn),
+           "bound_ms": bnd, "bound_by": by}
+    log(f"K3 {label} {tuple(x.shape)}: {json.dumps(rec)}")
+    return rec
+
+
+def k1_record(torch, istft_cuda, spec, frame, hop, label):
+    """K1 on spec (rows, T, bins) complex64: launched once against its
+    plain version, its event, device and CUDA-graph times beside the
+    plain version's, and its bound: per frame an inverse real FFT and a
+    window multiply, per sample an overlap add and the envelope multiply;
+    the spectrum read once, the signal written once. No library time:
+    torch.istft(center=False) refuses the periodic Hann window (its
+    envelope is 0 at the first sample: the NOLA check fails)."""
+    got = counted(istft_cuda.istft, 1, label,
+                  lambda: istft_cuda.istft(spec, frame, hop))
+    want = istft_cuda.istft_plain(spec, frame, hop)
+    torch.cuda.synchronize()
+    err = check_close(label, got, want, KERNEL_ATOL, KERNEL_RTOL)
+    rows, t = spec.shape[0], spec.shape[1]
+    bnd, by = bound_ms(rows * t * (frame + rfft_flops(frame))
+                       + 2.0 * got.numel(),
+                       8.0 * spec.numel() + 4.0 * got.numel())
+    rec = {"shape": list(spec.shape), "max_abs_err": err,
+           "ms": time_ms(torch, lambda: istft_cuda.istft(spec, frame, hop)),
+           "device_ms": device_ms(torch, lambda: istft_cuda.istft(
+               spec, frame, hop)),
+           "plain_ms": time_ms(torch, lambda: istft_cuda.istft_plain(
+               spec, frame, hop)),
+           "graph_ms": graph_ms(torch, lambda: istft_cuda.istft(
+               spec, frame, hop)),
+           "library_ms": None, "bound_ms": bnd, "bound_by": by}
+    log(f"K1 {label} {tuple(spec.shape)}: {json.dumps(rec)}")
+    return rec
+
+
+def kernel_step_gate(torch, trainer, batch, control, label, kernels):
+    """Gate (a) of the train paths: one float32 step's loss, pre-clip
+    gradient norm and gradients from one state, featurized by K3 (one
+    launch) and by its plain version, held to TRAIN_*; the gradient of
+    ``control``, another batch, must fail the gradient gate. The trainer
+    is left in its first state. Returns the record."""
+    stft_mag_cuda = kernels[0]
+    state0 = trainer.state()
+
+    def step_grads(plain: bool, which=batch):
+        trainer.load_state(state0)
+        trainer.generator.manual_seed(TRAIN_SEED)
+        if plain:
+            with plain_kernels(*kernels):
+                loss, _, norm = trainer.compute_grads(which)
+        else:
+            loss, _, norm = counted(stft_mag_cuda.stft_mag, 1, label,
+                                    lambda: trainer.compute_grads(which))
+        return float(loss.detach()), float(norm), grads_of(torch, trainer)
+
+    loss_k, norm_k, g_k = step_grads(False)
+    loss_p, norm_p, g_p = step_grads(True)
+    _, _, g_ctrl = step_grads(False, control)
+    l2 = rel_l2(torch, g_k, g_p)
+    l2_ctrl = rel_l2(torch, g_ctrl, g_p)
+    elem = max(float((a - c).abs().max() / max(float(c.abs().max()), 1e-30))
+               for a, c in zip(g_k, g_p))
+    check = {"loss_kernel": loss_k, "loss_plain": loss_p,
+             "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+             "grad_norm_rel": abs(norm_k - norm_p) / norm_p,
+             "grad_rel_l2": l2, "control_grad_rel_l2": l2_ctrl,
+             "max_elem_err_of_tensor_max": elem}
+    if not (check["loss_rel"] <= TRAIN_LOSS_RTOL
+            and check["grad_norm_rel"] <= TRAIN_NORM_RTOL
+            and l2 <= TRAIN_GRAD_L2 and np.isfinite(loss_k)):
+        raise AssertionError(f"{label}: step with K3 vs plain: {check}")
+    if not l2_ctrl > TRAIN_GRAD_L2:
+        raise AssertionError(f"{label}: the gradient gate passes another "
+                             f"batch's gradient ({l2_ctrl:.3e})")
+    trainer.load_state(state0)
+    return check
 
 
 def train_path(torch, dev, results, counters, stft_mag_cuda, istft_cuda,
@@ -757,78 +941,20 @@ def train_path(torch, dev, results, counters, stft_mag_cuda, istft_cuda,
     # K3 at the training shape: the stacked mix and sources of the batch
     x = torch.as_tensor(np.concatenate([batch["mix"], batch["source1"],
                                         batch["source2"]]), device=dev)
-    got = counted(stft_mag_cuda.stft_mag, 1, "stft_mag train",
-                  lambda: stft_mag_cuda.stft_mag(x, frame, hop))
-    want = stft_mag_cuda.stft_mag_plain(x, frame, hop)
-    torch.cuda.synchronize()
-    err = check_close("stft_mag train", got, want, KERNEL_ATOL, KERNEL_RTOL)
-    hann = torch.hann_window(frame, device=dev)
-
-    def lib_fn():
-        return torch.stft(x, frame, hop, window=hann, center=False,
-                          return_complex=True).abs()
-
-    bins, t = got.shape[2], got.shape[1]
-    bnd, by = bound_ms(x.shape[0] * t * (frame + rfft_flops(frame)
-                                         + 4 * bins),
-                       4.0 * (x.numel() + got.numel()))
-    k3 = {"shape": list(x.shape), "max_abs_err": err,
-          "ms": time_ms(torch, lambda: stft_mag_cuda.stft_mag(x, frame, hop)),
-          "device_ms": device_ms(torch, lambda: stft_mag_cuda.stft_mag(
-              x, frame, hop)),
-          "plain_ms": time_ms(torch, lambda: stft_mag_cuda.stft_mag_plain(
-              x, frame, hop)),
-          "library_ms": time_ms(torch, lib_fn),
-          "library_device_ms": device_ms(torch, lib_fn),
-          "graph_ms": graph_ms(torch, lambda: stft_mag_cuda.stft_mag(
-              x, frame, hop)),
-          "library_graph_ms": graph_ms(torch, lib_fn),
-          "bound_ms": bnd, "bound_by": by}
-    log(f"K3 stft_mag train {tuple(x.shape)}: {json.dumps(k3)}")
+    k3 = k3_record(torch, stft_mag_cuda, x, frame, hop, "stft_mag train")
     for r in results:
         if r["name"] == "stft_mag":
             r["train"] = k3
-    del x, got, want
+    del x
 
     # (a) K3 vs plain in one float32 step from one state
     trainer = make_trainer(torch, "Conformer", {}, 1e-4, dev)
-    state0 = trainer.state()
-
-    def step_grads(plain: bool, which=batch):
-        trainer.load_state(state0)
-        trainer.generator.manual_seed(TRAIN_SEED)
-        if plain:
-            with plain_kernels(stft_mag_cuda, istft_cuda, lstm_cuda):
-                loss, _, norm = trainer.compute_grads(which)
-        else:
-            loss, _, norm = counted(stft_mag_cuda.stft_mag, 1, "train (a)",
-                                    lambda: trainer.compute_grads(which))
-        return float(loss.detach()), float(norm), grads_of(torch, trainer)
-
-    loss_k, norm_k, g_k = step_grads(False)
-    loss_p, norm_p, g_p = step_grads(True)
-    _, _, g_ctrl = step_grads(False, train_batch(TRAIN_SEED + 1))
-    l2 = rel_l2(torch, g_k, g_p)
-    l2_ctrl = rel_l2(torch, g_ctrl, g_p)
-    elem = max(float((a - c).abs().max() / max(float(c.abs().max()), 1e-30))
-               for a, c in zip(g_k, g_p))
-    check_a = {"loss_kernel": loss_k, "loss_plain": loss_p,
-               "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
-               "grad_norm_rel": abs(norm_k - norm_p) / norm_p,
-               "grad_rel_l2": l2, "control_grad_rel_l2": l2_ctrl,
-               "max_elem_err_of_tensor_max": elem}
+    check_a = kernel_step_gate(torch, trainer, batch,
+                               train_batch(TRAIN_SEED + 1), "train (a)",
+                               (stft_mag_cuda, istft_cuda, lstm_cuda))
     print("train_check_a " + json.dumps(check_a), flush=True)
-    if not (check_a["loss_rel"] <= TRAIN_LOSS_RTOL
-            and check_a["grad_norm_rel"] <= TRAIN_NORM_RTOL
-            and l2 <= TRAIN_GRAD_L2 and np.isfinite(loss_k)):
-        raise AssertionError(f"train step with K3 vs plain: {check_a}")
-    if not l2_ctrl > TRAIN_GRAD_L2:
-        raise AssertionError(f"the gradient gate passes another batch's "
-                             f"gradient ({l2_ctrl:.3e})")
-    del g_k, g_p, g_ctrl
-    trainer.load_state(state0)
     f32_ms, _ = step_ms(torch, trainer, batch, 5, warmup=2)
-    del trainer, state0
+    del trainer
     torch.cuda.empty_cache()
 
     # (b) descent in bf16 on one batch, and the lr 0 control
@@ -962,6 +1088,282 @@ def train_path(torch, dev, results, counters, stft_mag_cuda, istft_cuda,
                         "losses": tas_losses}}
 
 
+def spatial_mixer(seed: int, level: float):
+    """SpatialMixer over the CLI's default corpus: TRAIN_BATCH windows of
+    TRAIN_WINDOW_SEC on the 7-mic array, sensor noise ``level``."""
+    from css_tpu_torch.data.mixer import MixtureSynthesizer
+    from css_tpu_torch.data.spatial import SpatialMixer
+
+    return SpatialMixer(MixtureSynthesizer.build_dataset(
+        train_material()[0], {"batch_size": TRAIN_BATCH,
+                              "min_window_size": TRAIN_WINDOW_SEC,
+                              "max_window_size": TRAIN_WINDOW_SEC,
+                              "seed": seed}), noise_level=level,
+        seed=seed + 31)
+
+
+def spatial_batch(seed: int) -> dict:
+    """One host-mixed 7ch batch (B, 7, N) with its dry sources."""
+    return {k: v for k, v in next(spatial_mixer(seed, SENSOR_NOISE)).items()
+            if k not in ("ovl", "lens")}
+
+
+def mixing_check(torch, dmix, enc, host, label):
+    """(b): an encoded recipe materialised on the card against its host
+    batch: the mixtures within MIX_ATOL, the sources bit-equal. Returns
+    the record, with the materialisation's card time, and the encoded
+    recipe on the card."""
+    enc_dev = {"dm_i": torch.as_tensor(enc["dm_i"], device=dmix.device),
+               "dm_f": torch.as_tensor(enc["dm_f"], device=dmix.device),
+               "win": enc["win"]}
+    got = dmix.materialize(enc_dev)
+    err = float(np.abs(got["mix"].cpu().numpy() - host["mix"]).max())
+    same = all(np.array_equal(got[k].cpu().numpy(), host[k])
+               for k in got if k.startswith("source"))
+    rec = {"shape": list(got["mix"].shape), "mix_max_abs_err": err,
+           "mix_peak": float(np.abs(host["mix"]).max()),
+           "sources_bit_equal": same,
+           "materialize_ms": time_ms(torch, lambda: dmix.materialize(
+               enc_dev), reps=10, warmup=1)}
+    if not (err <= MIX_ATOL and same):
+        raise AssertionError(f"device mixing {label} vs host: {rec}")
+    return rec, enc_dev
+
+
+def train_7ch_path(torch, dev, results, counters, kernels, smi_line):
+    """Phase 7 (module docstring); returns the train_7ch record."""
+    import tempfile
+    from pathlib import Path
+
+    from css_tpu_torch.cli import train as train_cli
+    from css_tpu_torch.cli.separate import load_model
+    from css_tpu_torch.data.augment import NoiseMix, ReverbWithImpulseResponse
+    from css_tpu_torch.data.corpus import SyntheticCorpus
+    from css_tpu_torch.data.device_mixer import DeviceMixer
+    from css_tpu_torch.data.mixer import MixtureSynthesizer
+    from css_tpu_torch.models import state_dict_from_checkpoint
+    from css_tpu_torch.objectives import build_objective
+    from css_tpu_torch.ops import native
+    from css_tpu_torch.trainer.checkpoint import load_checkpoint
+    from css_tpu_torch.trainer.loop import Trainer
+    from css_tpu_torch.trainer.lr_schedule import LRSchedule
+    from css_tpu_torch.trainer.probe import HeldOutProbe
+
+    stft_mag_cuda, istft_cuda, _ = kernels
+    frame, hop = main_shapes()["frame"], main_shapes()["hop"]
+    batch = spatial_batch(TRAIN_7CH_SEED)
+    b, n = batch["mix"].shape[0], batch["mix"].shape[-1]
+    # K3 at the 7ch training shape: channel 0 and the sources, stacked
+    x = torch.as_tensor(np.concatenate([batch["mix"][:, 0], batch["source1"],
+                                        batch["source2"]]), device=dev)
+    k3_train = k3_record(torch, stft_mag_cuda, x, frame, hop,
+                         "stft_mag train 7ch")
+    del x
+
+    # (a) K3 vs plain in one float32 step of the 7ch checkpoint
+    model = load_model(CHECKPOINT_7CH)
+    trainer = Trainer(model, build_objective("MSE", {"mse_noise_weight": 0.3}),
+                      LRSchedule(1e-4), optim="adam", weight_decay=1e-2,
+                      grad_thresh=5.0, device=dev, seed=TRAIN_SEED,
+                      ipd_index=IPD_7CH)
+    model.compute_dtype = torch.float32
+    check_a = kernel_step_gate(torch, trainer, batch,
+                               spatial_batch(TRAIN_7CH_SEED + 1),
+                               "train 7ch (a)", kernels)
+    print("train_7ch_check_a " + json.dumps(check_a), flush=True)
+    # the step's times, host-mixed and device-mixed (one sample each)
+    dmix = DeviceMixer(spatial_mixer(TRAIN_7CH_SEED + 4, SENSOR_NOISE),
+                       device=dev)
+    enc = next(dmix)
+    step = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("float32", torch.float32)):
+        model.compute_dtype = dtype
+        step[f"{name}_host_mix_ms"] = step_ms(torch, trainer, batch, 3)[0]
+        step[f"{name}_device_mix_ms"] = step_ms(torch, trainer, enc, 3,
+                                                dmix=dmix)[0]
+    del trainer, model, dmix
+    torch.cuda.empty_cache()
+
+    # (b) device against host mixing of the same recipes
+    corpus, rirs, noises = train_material()
+    mono = MixtureSynthesizer.build_dataset(corpus, {
+        "batch_size": TRAIN_BATCH, "min_window_size": TRAIN_WINDOW_SEC,
+        "max_window_size": TRAIN_WINDOW_SEC, "rir_pool": rirs,
+        "noise_pool": noises, "seed": TRAIN_7CH_SEED + 2})
+    recipe = mono.sample_recipe()
+    dmono = DeviceMixer(mono, device=dev)
+    check_b = {"1ch_rir_noise": mixing_check(
+        torch, dmono, dmono.encode(recipe),
+        mono.materialize_recipe_host(recipe), "1ch")[0]}
+    quiet = spatial_mixer(TRAIN_7CH_SEED + 3, 0.0)
+    dquiet = DeviceMixer(quiet, device=dev)
+    recipe = quiet.mixer.sample_recipe()
+    enc = dquiet.encode(recipe)  # draws each row's azimuths
+    k = quiet.mixer.num_speakers
+    host = quiet.spatialize_batch(quiet.mixer.materialize_recipe_host(recipe),
+                                  az=np.rad2deg(enc["dm_f"][:, 3:3 + k]))
+    check_b["7ch_noise_0"], enc_dev = mixing_check(
+        torch, dquiet, enc, host, "7ch")
+    noisy = DeviceMixer(spatial_mixer(TRAIN_7CH_SEED + 3, SENSOR_NOISE),
+                        device=dev)
+    first = noisy.materialize(enc_dev)["mix"]
+    again = noisy.materialize(enc_dev)["mix"]
+    noise = first - dquiet.materialize(enc_dev)["mix"]
+    std = float(noise.std())
+    check_b["7ch_sensor_noise"] = {
+        "level": SENSOR_NOISE, "std": std,
+        "std_rel_err": abs(std / SENSOR_NOISE - 1.0),
+        "bit_equal_twice": bool(torch.equal(first, again))}
+    print("train_7ch_check_b " + json.dumps(check_b), flush=True)
+    if not (check_b["7ch_sensor_noise"]["std_rel_err"] <= NOISE_STD_RTOL
+            and check_b["7ch_sensor_noise"]["bit_equal_twice"]):
+        raise AssertionError(f"sensor noise: {check_b['7ch_sensor_noise']}")
+    del dmono, dquiet, noisy, first, again, noise, enc_dev
+
+    # (c) the 7ch recipe through cli.train, counts reset just before
+    with tempfile.TemporaryDirectory() as tmp:
+        expdir = Path(tmp) / "exp7"
+        for c in counters:
+            c.launches = c.plain_routes = 0
+        t0 = time.perf_counter()
+        trainer = train_cli.main(RECIPE_7CH_ARGS + [
+            "--expdir", str(expdir), "--num-epochs", str(RECIPE_7CH_EPOCHS),
+            "--batches-per-epoch", str(RECIPE_7CH_BATCHES),
+            "--validate-batches", str(RECIPE_7CH_VALID),
+            "--init", CHECKPOINT_7CH, "--device", str(dev)])
+        recipe_sec = time.perf_counter() - t0
+        counts = {c.__name__: c.launches for c in counters}
+        routes = {c.__name__: c.plain_routes for c in counters}
+        # K3: each train and validation batch, and each probe call (one per
+        # epoch and one for the average); K1: each probe call
+        probes = RECIPE_7CH_EPOCHS + 1
+        expect = {"stft_mag": RECIPE_7CH_EPOCHS * (RECIPE_7CH_BATCHES
+                                                   + RECIPE_7CH_VALID)
+                  + probes, "istft": probes, "lstm_fused": 0}
+        if counts != expect or any(routes.values()):
+            raise AssertionError(f"7ch recipe run: launches {counts}, plain "
+                                 f"routes {routes}, expected {expect}")
+        files = sorted(p.name for p in expdir.iterdir())
+        want_files = sorted([f"{e}.1.mdl" for e in range(
+            RECIPE_7CH_EPOCHS - 1, RECIPE_7CH_EPOCHS + 1)]
+            + ["avgtop.1.mdl", "best.1.mdl", "conf.1.json",
+               "train.1.jsonl"])
+        with open(expdir / "train.1.jsonl") as fh:
+            records = [json.loads(line) for line in fh]
+        losses = [r["loss"] for r in records if "loss" in r]
+        probe_vals = [r["probe_si_snri_db"] for r in records
+                      if "probe_si_snri_db" in r]
+        avgtop = [r for r in records if "avgtop_epochs" in r]
+        if (files != want_files or len(losses) != RECIPE_7CH_EPOCHS
+                or not np.isfinite(losses).all()
+                or len(probe_vals) != RECIPE_7CH_EPOCHS
+                or not np.isfinite(probe_vals).all() or len(avgtop) != 1):
+            raise AssertionError(f"7ch recipe run wrote {files}, {records}")
+        last = expdir / f"{RECIPE_7CH_EPOCHS}.1.mdl"
+        ckpt = load_checkpoint(last)
+        reloaded = state_dict_from_checkpoint("Conformer", ckpt)
+        own = trainer.model.state_dict()
+        bit_equal = set(reloaded) == set(own) and all(
+            torch.equal(reloaded[k], own[k].cpu()) for k in own)
+        if (not bit_equal
+                or ckpt["step"] != RECIPE_7CH_EPOCHS * RECIPE_7CH_BATCHES):
+            raise AssertionError("the 7ch checkpoint does not reload "
+                                 "bit-equal")
+        del trainer
+    for r in results:
+        r["launches_by_path"]["conformer_7ch_train"] = counts[r["name"]]
+    check_c = {"seconds": recipe_sec, "launches": counts,
+               "plain_routes": routes, "files": files, "losses": losses,
+               "probe_si_snri_db": probe_vals, "avgtop": avgtop[0],
+               "reload_bit_equal": bit_equal}
+    print("train_7ch_check_c " + json.dumps(check_c), flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) the flagship's probe in float32 against css_tpu's value, and the
+    # probe's kernel shapes and seconds per call (the 7ch checkpoint too)
+    probe_corpus = SyntheticCorpus(**PROBE_CORPUS)
+    probe_kw = dict(sessions=PROBE_SESSIONS, session_sec=PROBE_SESSION_SEC,
+                    seed=PROBE_CORPUS["seed"], device=dev)
+    check_d = {}
+    for label, ckpt_path, kw in (
+            ("mask", CHECKPOINT, {"mode": "mask"}),
+            ("spatial", CHECKPOINT_7CH, {"mode": "spatial",
+                                         "ipd_index": IPD_7CH,
+                                         "noise_level": SENSOR_NOISE})):
+        model = load_model(ckpt_path).to(dev)
+        model.compute_dtype = torch.float32
+        probe = HeldOutProbe(probe_corpus, **probe_kw, **kw)
+        secs = []
+        for _ in range(3):
+            for c in counters:
+                c.launches = c.plain_routes = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            val = probe(model)
+            secs.append(time.perf_counter() - t)
+            counts = {c.__name__: c.launches for c in counters}
+            if (counts != {"stft_mag": 1, "istft": 1, "lstm_fused": 0}
+                    or any(c.plain_routes for c in counters)):
+                raise AssertionError(f"probe {label}: launches {counts}")
+        check_d[label] = {"si_snri_db": val, "cold_s": secs[0],
+                          "warm_s": float(np.median(secs[1:]))}
+        if label == "mask":
+            s_, w_ = probe.windows.shape[:2]
+            k3_probe = k3_record(torch, stft_mag_cuda, probe.windows.reshape(
+                s_ * w_, -1), frame, hop, "stft_mag probe")
+            with torch.no_grad():
+                est, _ = probe.masked_spectra(model.eval())
+            k1_probe = k1_record(torch, istft_cuda, est, frame, hop,
+                                 "istft probe")
+        del model, probe
+    err_d = abs(check_d["mask"]["si_snri_db"] - PROBE_REFERENCE_DB)
+    check_d.update({"reference_db": PROBE_REFERENCE_DB, "abs_err_db": err_d,
+                    "card": smi_line})
+    print("train_7ch_check_d " + json.dumps(check_d), flush=True)
+    if not err_d <= PROBE_ATOL_DB or not np.isfinite(
+            check_d["spatial"]["si_snri_db"]):
+        raise AssertionError(f"probe of the flagship: {check_d}")
+
+    # (e) the native core (built by g++ in phase 1): the mixer's native
+    # path (css_tpu's default switches: placing and noise native, reverb
+    # in scipy) against the numpy path, and no fall-back in the whole run
+
+    def mono_mixer(use_native):
+        m = MixtureSynthesizer(corpus, batch_size=TRAIN_BATCH,
+                               min_window=TRAIN_WINDOW_SEC,
+                               max_window=TRAIN_WINDOW_SEC,
+                               seed=TRAIN_7CH_SEED + 5, use_native=use_native)
+        m.transforms = [ReverbWithImpulseResponse(rirs),
+                        NoiseMix(noises, use_native=use_native)]
+        return m
+
+    calls = native.calls
+    got, want = next(mono_mixer(True)), next(mono_mixer(False))
+    err_e = float(np.abs(got["mix"] - want["mix"]).max())
+    check_e = {"library": native.library_path().name,
+               "calls": native.calls - calls, "fallbacks": native.fallbacks,
+               "mix_max_abs_err": err_e, "sources_bit_equal": all(
+                   np.array_equal(got[k], want[k]) for k in want
+                   if k.startswith("source"))}
+    print("train_7ch_check_e " + json.dumps(check_e), flush=True)
+    if not (check_e["calls"] > 0 and native.fallbacks == 0
+            and err_e <= 1e-6 and check_e["sources_bit_equal"]):
+        raise AssertionError(f"native core: {check_e}")
+
+    for r in results:
+        if r["name"] == "stft_mag":
+            r["train_7ch"] = dict(k3_train, launches="1 per step")
+            r["probe"] = dict(k3_probe, launches="1 per probe call")
+        if r["name"] == "istft":
+            r["probe"] = dict(k1_probe, launches="1 per probe call")
+    return {"batch": b, "window_s": n / CONFIG["sampling_rate"],
+            "step_ms": step, "probe_s": {k: {"cold": v["cold_s"],
+                                              "warm": v["warm_s"]}
+                                          for k, v in check_d.items()
+                                          if isinstance(v, dict)},
+            "recipe_s": recipe_sec, "card": smi_line}
+
+
 def main() -> int:
     import torch
 
@@ -973,7 +1375,8 @@ def main() -> int:
     from css_tpu_torch.executor.pipeline import CssPipeline
     from css_tpu_torch.models import blstm
     from css_tpu_torch.executor.reanchor import reanchor_streams
-    from css_tpu_torch.ops import _build, istft_cuda, lstm_cuda, stft_mag_cuda
+    from css_tpu_torch.ops import (_build, istft_cuda, lstm_cuda, native,
+                                   stft_mag_cuda)
     from css_tpu_torch.ops import stft as stft_ops
 
     # ---------------------------------------------------------- 1. device
@@ -993,6 +1396,14 @@ def main() -> int:
     _build.load_library()
     log(f"built {lib_path.name} in {time.perf_counter() - t_build:.1f} s")
     log(lib_path.with_suffix(".log").read_text())
+    # the native mixing core, built by g++ at this first use; its
+    # fall-backs to numpy are counted from here to the end of the run
+    t_build = time.perf_counter()
+    if native.load() is None:
+        raise AssertionError(f"native core unavailable: {native.error}")
+    native.fallbacks = 0
+    log(f"built {native.library_path().name} in "
+        f"{time.perf_counter() - t_build:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase("device+build", t0)
@@ -1492,6 +1903,17 @@ def main() -> int:
           f"{steps['blstm']['float32_ms']:.1f} ms/step; {smi_line}",
           flush=True)
     phase("conformer train path", t0)
+
+    # ------------------------------------------ 7. Conformer 7ch train path
+    t0 = time.perf_counter()
+    rec7 = train_7ch_path(torch, dev, results, counters,
+                          (stft_mag_cuda, istft_cuda, lstm_cuda), smi_line)
+    print("train_7ch " + json.dumps(rec7), flush=True)
+    print(f"main_path conformer_7ch_train: batch {rec7['batch']} x "
+          f"{rec7['window_s']:.1f} s on 7 channels; step ms {rec7['step_ms']};"
+          f" probe s {rec7['probe_s']}; recipe run {rec7['recipe_s']:.1f} s; "
+          f"{smi_line}", flush=True)
+    phase("conformer 7ch train path", t0)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi_line, flush=True)

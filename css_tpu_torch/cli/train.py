@@ -12,6 +12,16 @@ garbage-collected by --keep-every/--keep-last), ``best.<job>.mdl`` with
 cuda; it raises without a card and never falls back to the CPU). The JAX
 package's --platform, --prng-impl and --debug-nans have no counterpart
 here. Options whose ROADMAP.md item is still open raise and name it.
+
+--spatialize-channels 7 trains the 7ch (IPD-featured) model on mixtures
+rendered on the 7-mic array (``data/spatial.SpatialMixer``, sensor noise
+--sensor-noise-level, IPD pairs --train-ipd-index). --device-mix mixes on
+the card from encoded recipes (``data/device_mixer.py``). --probe-sessions
+N scores every epoch with the held-out probe (``trainer/probe.py``), which
+then selects ``best.<job>.mdl`` under --keep-best; --average-probe-top N
+keeps the N best-probed epochs and averages them into
+``avgtop.<job>.mdl``, or ships the best single epoch where the average
+probes worse or not finite.
 """
 
 from __future__ import annotations
@@ -28,14 +38,17 @@ import torch
 from css_tpu_torch.data.corpus import (Corpus, SyntheticCorpus,
                                        synthetic_noise_pool,
                                        synthetic_rir_pool)
+from css_tpu_torch.data.device_mixer import DeviceMixer
 from css_tpu_torch.data.loader import PrefetchLoader
 from css_tpu_torch.data.mixer import MixtureSynthesizer
+from css_tpu_torch.data.spatial import SpatialMixer
 from css_tpu_torch.device import resolve_device
 from css_tpu_torch.models import MODELS, from_jax, init_variables
 from css_tpu_torch.objectives import OBJECTIVES
 from css_tpu_torch.trainer import checkpoint
 from css_tpu_torch.trainer.loop import Trainer
 from css_tpu_torch.trainer.lr_schedule import LRSchedule
+from css_tpu_torch.trainer.probe import HeldOutProbe
 from css_tpu_torch.utils.logging import MetricsLogger, get_logger
 
 log = get_logger(__name__)
@@ -114,13 +127,6 @@ NOT_PORTED = [
      "Queue 1 item 10"),
     ("--tp > 1", lambda a: a.tp > 1, "Queue 1 item 10"),
     ("--multihost", lambda a: a.multihost, "Queue 1 item 10"),
-    ("--device-mix", lambda a: a.device_mix, "Queue 1 item 8b"),
-    ("--probe-sessions > 0", lambda a: a.probe_sessions > 0,
-     "Queue 1 item 8c"),
-    ("--average-probe-top > 0", lambda a: a.average_probe_top > 0,
-     "Queue 1 item 8c"),
-    ("--spatialize-channels > 0", lambda a: a.spatialize_channels > 0,
-     "Queue 1 item 8a"),
 ]
 
 
@@ -141,11 +147,16 @@ def parse_arguments(argv=None):
                         choices=("harmonic", "formant"))
     parser.add_argument("--spatialize-channels", type=int, default=0,
                         choices=(0, 7),
-                        help="7-mic spatial training: ROADMAP.md Queue 1 "
-                             "item 8a, not ported (raises)")
-    parser.add_argument("--sensor-noise-level", type=float, default=0.003)
+                        help="render training mixtures on the 7-mic "
+                             "circular array (far-field delays, per-window "
+                             "azimuths) and train the IPD-featured model")
+    parser.add_argument("--sensor-noise-level", type=float, default=0.003,
+                        help="white sensor noise added per channel by "
+                             "--spatialize-channels")
     parser.add_argument("--train-ipd-index",
-                        default="1,0;2,0;3,0;4,0;5,0;6,0")
+                        default="1,0;2,0;3,0;4,0;5,0;6,0",
+                        help="IPD channel pairs for multichannel training "
+                             "(config_7ch.yaml 'ipd' syntax)")
     parser.add_argument("--expdir", type=str, required=True)
     parser.add_argument("--model", default="Conformer",
                         choices=sorted(MODELS))
@@ -190,22 +201,31 @@ def parse_arguments(argv=None):
                         help="write a torch.profiler trace of epoch 1 here")
     parser.add_argument("--keep-best", action="store_true",
                         help="also save best.{job}.mdl whenever the "
-                             "validation loss improves")
+                             "selection metric improves (the held-out "
+                             "probe's SI-SNRi with --probe-sessions, else "
+                             "the validation loss)")
     parser.add_argument("--probe-sessions", type=int, default=0,
-                        help="held-out SI-SNRi probe: ROADMAP.md Queue 1 "
-                             "item 8c, not ported (raises when > 0)")
+                        help="score every epoch by the held-out SI-SNRi "
+                             "probe on this many fixed synthetic sessions")
     parser.add_argument("--probe-session-sec", type=float, default=12.0)
-    parser.add_argument("--probe-stratify-f0", action="store_true")
-    parser.add_argument("--average-probe-top", type=int, default=0)
-    parser.add_argument("--probe-seed", type=int, default=456)
+    parser.add_argument("--probe-stratify-f0", action="store_true",
+                        help="spread the probe sessions' speaker pairs "
+                             "over the |f0| gap ranking, closest included")
+    parser.add_argument("--average-probe-top", type=int, default=0,
+                        help="after training, average the N best-probed "
+                             "epochs into avgtop.{job}.mdl (needs "
+                             "--probe-sessions)")
+    parser.add_argument("--probe-seed", type=int, default=456,
+                        help="the held-out probe corpus' seed")
     parser.add_argument("--probe-speakers", type=int, default=6)
     parser.add_argument("--probe-utts", type=int, default=4)
     parser.add_argument("--validate-batches", type=int, default=100)
     parser.add_argument("--num-workers", type=int, default=2,
                         help="producer threads for mixture synthesis")
     parser.add_argument("--device-mix", action="store_true",
-                        help="on-device mixing: ROADMAP.md Queue 1 item "
-                             "8b, not ported (raises)")
+                        help="mix on the card: the audio pools go to the "
+                             "card once and the host streams only the "
+                             "mixing decisions")
     parser.add_argument("--fail-after-batches", type=int, default=None,
                         help="crash this process (exit 17, no checkpoint) "
                              "after N batches")
@@ -253,12 +273,51 @@ def _simple(conf):
             if isinstance(v, (str, int, float, bool, type(None)))}
 
 
+def _check_flags(args):
+    """The JAX package's incompatibility errors."""
+    if args.spatialize_channels:
+        if args.synthetic_rirs:
+            raise SystemExit("--spatialize-channels is incompatible with "
+                             "--synthetic-rirs (mono-mixture reverb has no "
+                             "spatial image; sensor noise is added per "
+                             "channel instead)")
+        if args.model == "ConvTasNet":
+            raise SystemExit("--spatialize-channels needs a mask model "
+                             "(Conformer/BLSTM)")
+    if args.average_probe_top > 0 and args.probe_sessions <= 0:
+        raise SystemExit("--average-probe-top requires --probe-sessions > 0")
+
+
+def build_probe(args, conf, train_ipd, device) -> HeldOutProbe:
+    """The held-out probe in the model family's mode: time for waveform
+    models, spatial for 7ch training, else mask."""
+    if args.model == "ConvTasNet":
+        mode, probe_ipd = "time", None
+    elif args.spatialize_channels:
+        mode, probe_ipd = "spatial", train_ipd
+    else:
+        mode, probe_ipd = "mask", None
+    corpus = SyntheticCorpus(num_speakers=args.probe_speakers,
+                             utts_per_speaker=args.probe_utts,
+                             seed=args.probe_seed,
+                             f0_max=args.synthetic_f0_max,
+                             voice=args.synthetic_voice)
+    return HeldOutProbe(corpus, sessions=args.probe_sessions,
+                        session_sec=args.probe_session_sec,
+                        seed=args.probe_seed,
+                        num_spk=int(conf.get("num_spk", 2) or 2),
+                        mode=mode, ipd_index=probe_ipd,
+                        noise_level=args.sensor_noise_level,
+                        stratify_f0=args.probe_stratify_f0, device=device)
+
+
 def main(argv=None):
     args = parse_arguments(argv)
     for flag, is_set, item in NOT_PORTED:
         if is_set(args):
             raise NotImplementedError(
                 f"{flag} is not ported yet: ROADMAP.md {item}")
+    _check_flags(args)
     device = resolve_device(args.device)
     expdir = Path(args.expdir)
     expdir.mkdir(parents=True, exist_ok=True)
@@ -279,22 +338,45 @@ def main(argv=None):
     if args.synthetic_rirs:
         conf["rir_pool"] = synthetic_rir_pool()
         conf["noise_pool"] = synthetic_noise_pool()
+
+    def spatial(ds, seed):
+        if not args.spatialize_channels:
+            return ds
+        return SpatialMixer(ds, noise_level=args.sensor_noise_level,
+                            seed=seed)
+
+    dmix = dev_dmix = None
+    if args.device_mix:
+        # the pools of the training and the validation material, on the
+        # card; the spatial draws of device-mixed recipes come from these
+        dmix = DeviceMixer(spatial(MixtureSynthesizer.build_dataset(
+            corpus, conf), conf["seed"] + 31), device=device)
+        if dev_corpus is not None:
+            dev_dmix = DeviceMixer(spatial(MixtureSynthesizer.build_dataset(
+                dev_corpus, _pin_dev_windows(conf)), 12376), device=device)
     if args.num_workers > 1 and conf.get("window_seed") is None:
         # producer threads must draw the same window-bucket sequence; the
         # offset keeps this stream apart from every content seed
         conf["window_seed"] = args.seed + 1000 * args.job + 104729
 
     def make_train_stream(i=0):
-        return MixtureSynthesizer.build_dataset(
+        ds = MixtureSynthesizer.build_dataset(
             corpus, {**conf, "seed": conf["seed"] + 7 * i})
+        if dmix is not None:
+            return dmix.wrap(ds)  # spatial rendering happens on the card
+        return spatial(ds, conf["seed"] + 7 * i + 31)
 
     if args.num_workers > 1:
         dataset = PrefetchLoader(factory=make_train_stream,
                                  num_threads=args.num_workers, device=device)
     else:
         dataset = make_train_stream()
-    dev_dataset = (MixtureSynthesizer.build_dataset(
-        dev_corpus, _pin_dev_windows(conf)) if dev_corpus else None)
+    if dev_dmix is not None:
+        dev_dataset = dev_dmix
+    else:
+        dev_dataset = (spatial(MixtureSynthesizer.build_dataset(
+            dev_corpus, _pin_dev_windows(conf)), 12376)
+            if dev_corpus else None)
     if args.fail_after_batches is not None:
         def _crashing(it, n=args.fail_after_batches):
             for i, b in enumerate(it):
@@ -304,6 +386,12 @@ def main(argv=None):
         dataset = _crashing(iter(dataset))
 
     conf["bf16"] = args.bf16
+    train_ipd = None
+    if args.spatialize_channels:
+        train_ipd = args.train_ipd_index
+        # [ch0 magnitude, M IPD pairs]: the 7ch separator's feature layout
+        conf["idim"] = int(conf.get("num_bins", 257)) * (
+            1 + len(train_ipd.split(";")))
     model = MODELS[args.model].build_model(conf)
     model.load_state_dict(from_jax(model, *init_variables(model, args.seed)))
     objective = OBJECTIVES[args.objective].build_objective(conf)
@@ -312,7 +400,9 @@ def main(argv=None):
                       grad_thresh=args.grad_thresh,
                       input_domain=("time" if args.model == "ConvTasNet"
                                     else "stft"),
-                      device=device, seed=args.seed)
+                      device=device, seed=args.seed, ipd_index=train_ipd)
+    probe = (build_probe(args, conf, train_ipd, device)
+             if args.probe_sessions > 0 else None)
     n_params = sum(p.numel() for p in model.parameters())
     log.info("Training %s with %d parameters (single strategy on %s)",
              args.model, n_params, torch.cuda.get_device_name(device)
@@ -336,6 +426,8 @@ def main(argv=None):
     metrics_log = MetricsLogger(expdir / f"train.{args.job}.jsonl",
                                 echo_every=50)
     best_val = float("inf")
+    best_probe = float("-inf")
+    probe_top = []  # [(probe SI-SNRi, epoch, path)], the best N epochs
     profiler = None
     if args.profile_dir:
         from torch.profiler import ProfilerActivity, profile
@@ -345,24 +437,60 @@ def main(argv=None):
         profiler.start()
     for e in range(start_epoch, start_epoch + args.num_epochs):
         avg_loss = trainer.train_one_epoch(dataset, args.batches_per_epoch,
-                                           metrics_log)
+                                           metrics_log, dmix=dmix)
         t_val = _time.perf_counter()
         val = None
         if dev_dataset is not None:
             val = trainer.validate(dev_dataset,
-                                   num_batches=args.validate_batches)
+                                   num_batches=args.validate_batches,
+                                   dmix=dev_dmix)
             log.info("Epoch %d :: train loss %.5f valid loss %.5f "
                      "(validate %.1fs)", e + 1, avg_loss, val,
                      _time.perf_counter() - t_val)
         else:
             log.info("Epoch %d :: train loss %.5f", e + 1, avg_loss)
-        if (args.keep_best and val is not None and np.isfinite(val)
-                and val < best_val):
-            best_val = val
-            log.info("New best validation loss %.5f (epoch %d)", val, e + 1)
-            checkpoint.save_checkpoint(
-                expdir / f"best.{args.job}.mdl", trainer.state(),
-                epoch=e + 1, loss=float(val), conf=_simple(conf))
+        probe_val = None
+        if probe is not None:
+            probe_val = probe(trainer.model)
+            log.info("Epoch %d :: held-out probe SI-SNRi %+.3f dB",
+                     e + 1, probe_val)
+            metrics_log({"epoch": e + 1,
+                         "probe_si_snri_db": float(probe_val)})
+        selection_loss = float(val if val is not None else avg_loss)
+        if (args.average_probe_top > 0 and probe_val is not None
+                and np.isfinite(probe_val)):
+            if (len(probe_top) < args.average_probe_top
+                    or probe_val > probe_top[-1][0]):
+                p = expdir / f"ptop.{e + 1}.{args.job}.mdl"
+                checkpoint.save_checkpoint(
+                    p, trainer.state(), epoch=e + 1, loss=selection_loss,
+                    conf=_simple(conf),
+                    extra={"probe_si_snri_db": float(probe_val)})
+                probe_top.append((float(probe_val), e + 1, p))
+                probe_top.sort(key=lambda t: -t[0])
+                while len(probe_top) > args.average_probe_top:
+                    probe_top.pop()[2].unlink(missing_ok=True)
+        if args.keep_best:
+            # the probe selects where it runs (validation MSE picks the
+            # wrong checkpoint, BASELINE.md); else the validation loss
+            improved = False
+            if probe_val is not None and np.isfinite(probe_val):
+                if probe_val > best_probe:
+                    best_probe = probe_val
+                    improved = True
+                    log.info("New best probe SI-SNRi %+.3f dB (epoch %d)",
+                             probe_val, e + 1)
+            elif val is not None and np.isfinite(val) and val < best_val:
+                best_val = val
+                improved = True
+                log.info("New best validation loss %.5f (epoch %d)",
+                         val, e + 1)
+            if improved:
+                checkpoint.save_checkpoint(
+                    expdir / f"best.{args.job}.mdl", trainer.state(),
+                    epoch=e + 1, loss=selection_loss, conf=_simple(conf),
+                    extra=({"probe_si_snri_db": float(probe_val)}
+                           if probe_val is not None else None))
         if profiler is not None:  # exactly one epoch
             profiler.stop()
             Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
@@ -379,11 +507,55 @@ def main(argv=None):
                                       keep_last=args.keep_last, job=args.job)
             log.info("Checkpoint %d.%d saved (%.1fs)", e + 1, args.job,
                      _time.perf_counter() - t_save)
+    if args.average_probe_top > 0 and probe_top:
+        average_probe_top(trainer, probe, probe_top, expdir, args.job,
+                          metrics_log)
     if isinstance(dataset, PrefetchLoader):
         dataset.close()
     metrics_log.close()
     log.info("Done.")
     return trainer
+
+
+def average_probe_top(trainer, probe, probe_top, expdir: Path, job: int,
+                      metrics_log) -> None:
+    """Average the probe-top checkpoints (one run, so one basin) into
+    ``avgtop.<job>.mdl`` and probe the average; where it probes worse than
+    the best single epoch, or not finite, ship that epoch instead. The
+    probe-top files are deleted after. The trainer is left as it was."""
+    out = expdir / f"avgtop.{job}.mdl"
+    merged = checkpoint.average_checkpoints([str(p) for _, _, p in probe_top])
+    checkpoint.save_checkpoint_dict(str(out), merged)
+    model = trainer.model
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(from_jax(model, merged["params"],
+                                   merged.get("batch_stats")))
+    try:
+        avg_probe = probe(model)
+    finally:
+        model.load_state_dict(saved)
+    log.info("avgtop.%d.mdl: averaged %d probe-top epochs %s (probe %s) -> "
+             "probe SI-SNRi %+.3f dB", job, len(probe_top),
+             [e for _, e, _ in probe_top],
+             ["%+.2f" % v for v, _, _ in probe_top], avg_probe)
+    best_val, best_epoch, best_path = probe_top[0]
+    if not np.isfinite(avg_probe):
+        log.warning("avgtop.%d.mdl: probe of the average is non-finite (%s) "
+                    "-- treating as worse than best single epoch", job,
+                    avg_probe)
+    if not np.isfinite(avg_probe) or avg_probe < best_val:
+        checkpoint.save_checkpoint_dict(
+            str(out), checkpoint.load_checkpoint(str(best_path)))
+        log.info("avgtop.%d.mdl: average (%+.3f) probes WORSE than best "
+                 "single epoch %d (%+.3f) -- shipping the single epoch", job,
+                 avg_probe, best_epoch, best_val)
+        avg_probe, avg_epochs = best_val, [best_epoch]
+    else:
+        avg_epochs = [e for _, e, _ in probe_top]
+    metrics_log({"avgtop_epochs": avg_epochs,
+                 "avgtop_probe_si_snri_db": float(avg_probe)})
+    for _, _, p in probe_top:
+        p.unlink(missing_ok=True)
 
 
 if __name__ == "__main__":

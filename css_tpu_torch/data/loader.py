@@ -4,7 +4,10 @@ Producer threads run the mixture synthesizer ahead of the training loop
 (its numpy and scipy work releases the GIL) into a bounded queue. On a
 CUDA device each producer pins its batch's arrays in page-locked memory,
 and the consumer copies them to the card with ``non_blocking=True``, so
-the copy overlaps the step the card is running.
+the copy overlaps the step the card is running. With on-device mixing a
+producer is ``DeviceMixer.wrap(mixer_i)``, and what it stages is an
+encoded recipe: the small ``dm_i``/``dm_f`` arrays, pinned and copied the
+same way.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""On-the-fly K-speaker mixture synthesis (copy of the numpy path of
+"""On-the-fly K-speaker mixture synthesis (copy of
 ``css_tpu/data/mixer.py``).
 
 Per batch: one window size from a small set of buckets; until the batch is
@@ -8,9 +8,19 @@ the sources cut into equal windows (ragged tail dropped); the augmentations
 on the mixture windows only; the cumulative overlap ratio. Batches are raw
 waveforms: the trainer featurizes them on the device. From the same seed
 the batches are bit-equal to the JAX package's with ``use_native=False``
-(tests/test_torch_train_data.py). The native (``mixcore.cpp``) path and the
-encoded-recipe protocol of device-side mixing wait for ROADMAP.md's later
-items.
+(tests/test_torch_train_data.py).
+
+``use_native`` (on by default, as in the JAX package) places and windows
+the utterances with the native core (``ops/native.py``, the port's build
+of ``mixcore.cpp``): the same copies and sums, so the same bits. Where the
+core is unavailable the numpy path runs and each mixture it places is
+counted in ``native.fallbacks``.
+
+The recipe protocol: ``sample_recipe`` draws one batch's mixing decisions
+(utterance ids, window offsets, augmentation draws) with the same rng
+calls in the same order as ``__next__``, and ``materialize_recipe_host``
+turns a recipe into the batch ``__next__`` would have given.
+``data/device_mixer.py`` materialises the same recipes on the card.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import numpy as np
 
 from css_tpu_torch.data.augment import NoiseMix, ReverbWithImpulseResponse
 from css_tpu_torch.data.corpus import Corpus
+from css_tpu_torch.ops import native
 
 
 def default_window_buckets(min_window: float, max_window: float,
@@ -109,7 +120,8 @@ class MixtureSynthesizer:
                  rir_pool=None, noise_pool=None,
                  min_snr: float = 5.0, max_snr: float = 20.0,
                  reverb_p: float = 0.5, noise_p: float = 0.5,
-                 seed: int = 0, num_speakers: int = 2, window_group: int = 1,
+                 seed: int = 0, use_native: bool = True,
+                 num_speakers: int = 2, window_group: int = 1,
                  window_seed=None, hard_pair_frac: float = 0.0,
                  hard_pair_df0: float = 80.0):
         # K-speaker generalization of the reference's 2-speaker sampling
@@ -120,6 +132,8 @@ class MixtureSynthesizer:
                 f"need at least {num_speakers} speakers, corpus has "
                 f"{len(corpus.speakers)}")
         self.num_speakers = num_speakers
+        self._want_native = use_native
+        self._use_native = use_native and native.available()
         self.corpus = corpus
         self.sr = corpus.sample_rate
         self.batch_size = batch_size
@@ -269,16 +283,23 @@ class MixtureSynthesizer:
             num_windows = int(mix_end_t / window_size)
             usable = num_windows * win
             mix_len = max(o + len(w) for o, w in zip(offs, waves))
-            length = max(mix_len, usable)
-            padded = []
-            for o, w in zip(offs, waves):
-                s = np.zeros(length, np.float32)
-                s[o : o + len(w)] = w
-                padded.append(s)
-            mix = np.sum(padded, axis=0)
-            mixw = mix[:usable].reshape(num_windows, win)
-            src_windows = [s[:usable].reshape(num_windows, win)
-                           for s in padded]
+            if self._use_native:
+                mixw, srcs_arr = native.mix_and_window_k(
+                    waves, offs, win, num_windows)
+                src_windows = [srcs_arr[i] for i in range(k_spk)]
+            else:
+                if self._want_native:
+                    native.count_fallback()
+                length = max(mix_len, usable)
+                padded = []
+                for o, w in zip(offs, waves):
+                    s = np.zeros(length, np.float32)
+                    s[o : o + len(w)] = w
+                    padded.append(s)
+                mix = np.sum(padded, axis=0)
+                mixw = mix[:usable].reshape(num_windows, win)
+                src_windows = [s[:usable].reshape(num_windows, win)
+                               for s in padded]
             for wi in range(num_windows):
                 m = mixw[wi]
                 for tr in self.transforms:  # mixture only (separation.py:233)
@@ -295,4 +316,106 @@ class MixtureSynthesizer:
         }
         for i, s_list in enumerate(srcs):
             batch[f"source{i + 1}"] = np.stack(s_list)
+        return batch
+
+    # ------------------------------------------------------- recipe protocol
+    def _utt_global_index(self, cut) -> int:
+        """A cut's position in ``corpus.utterances``."""
+        if not hasattr(self, "_utt_idx_map"):
+            self._utt_idx_map = {
+                id(u): i for i, u in enumerate(self.corpus.utterances)}
+        return self._utt_idx_map[id(cut)]
+
+    def sample_recipe(self) -> Dict[str, np.ndarray]:
+        """One batch of mixing decisions; no audio is touched.
+
+        The rng calls of ``__next__`` in its order: per window the K
+        utterance ids and the window's start in each utterance's
+        coordinates, the augmentation decisions (RIR index; noise index,
+        start and SNR), the window length ``win`` and the overlap ratio.
+        """
+        rng = self.rng
+        window_size = self._next_window_bucket()
+        win = int(window_size * self.sr)
+        b, k = self.batch_size, self.num_speakers
+        utt = np.zeros((b, k), np.int32)
+        start = np.zeros((b, k), np.int32)
+        rir_on = np.zeros(b, bool)
+        rir_idx = np.zeros(b, np.int32)
+        noise_on = np.zeros(b, bool)
+        noise_idx = np.zeros(b, np.int32)
+        noise_start = np.zeros(b, np.int32)
+        snr = np.zeros(b, np.float32)
+        total_length = 0.0
+        total_overlap = 0.0
+        failed_attempts = 0
+        rows = 0
+        while rows < b:
+            if failed_attempts > 10000:
+                raise self._batch_fill_error(window_size)
+            drawn = self._sample_mixture(rng, window_size)
+            if drawn is None:
+                failed_attempts += 1
+                continue
+            cuts, offs, mix_end_t = drawn
+            total_length += mix_end_t
+            total_overlap += self._accumulate_overlap(cuts, offs)
+            ids = [self._utt_global_index(c) for c in cuts]
+            num_windows = int(mix_end_t / window_size)
+            for wi in range(num_windows):
+                utt[rows] = ids
+                start[rows] = [wi * win - o for o in offs]
+                for tr in self.transforms:  # rng order == __next__'s
+                    d = tr.sample(rng, win)
+                    if isinstance(tr, ReverbWithImpulseResponse):
+                        if d is not None:
+                            rir_on[rows], rir_idx[rows] = True, d
+                    elif isinstance(tr, NoiseMix):
+                        if d is not None:
+                            noise_on[rows] = True
+                            noise_idx[rows], noise_start[rows], snr[rows] = d
+                rows += 1
+                if rows >= b:
+                    break
+        return {
+            "utt": utt, "start": start,
+            "rir_on": rir_on, "rir_idx": rir_idx,
+            "noise_on": noise_on, "noise_idx": noise_idx,
+            "noise_start": noise_start, "snr": snr,
+            "win": win,
+            "ovl": np.float32(total_overlap / max(total_length, 1e-9)),
+        }
+
+    def materialize_recipe_host(self, recipe) -> Dict[str, np.ndarray]:
+        """The numpy batch of a recipe: what ``__next__`` gives from the
+        same rng stream."""
+        win = int(recipe["win"])
+        b, k = recipe["utt"].shape
+        srcs = np.zeros((k, b, win), np.float32)
+        mix = np.zeros((b, win), np.float32)
+        for bi in range(b):
+            for ki in range(k):
+                w = self.corpus.utterances[int(recipe["utt"][bi, ki])].load()
+                a = int(recipe["start"][bi, ki])
+                lo, hi = max(0, a), min(len(w), a + win)
+                if hi > lo:
+                    srcs[ki, bi, lo - a : hi - a] = w[lo:hi]
+            m = srcs[:, bi].sum(axis=0)
+            for tr in self.transforms:
+                if isinstance(tr, ReverbWithImpulseResponse):
+                    m = tr.apply(m, int(recipe["rir_idx"][bi])
+                                 if recipe["rir_on"][bi] else None)
+                elif isinstance(tr, NoiseMix):
+                    m = tr.apply(m, (int(recipe["noise_idx"][bi]),
+                                     int(recipe["noise_start"][bi]),
+                                     float(recipe["snr"][bi]))
+                                 if recipe["noise_on"][bi] else None)
+            mix[bi] = m
+        batch = {
+            "mix": mix,
+            "lens": np.full(b, win, np.int32),
+            "ovl": recipe["ovl"],
+        }
+        for ki in range(k):
+            batch[f"source{ki + 1}"] = srcs[ki]
         return batch

@@ -2,8 +2,8 @@
 ``single``).
 
 One step: featurize the raw waveforms on the device (K3 for every
-magnitude), the model forward in training mode, the objective, the
-backward, then the JAX package's optax chain written out:
+magnitude, in one launch), the model forward in training mode, the
+objective, the backward, then the JAX package's optax chain written out:
   1. ``clip_by_global_norm``: g * max / |g| when |g| >= max (optax's rule,
      not ``clip_grad_norm_``'s max / (|g| + 1e-6));
   2. Adam: the L2 term ``wd * param`` added to the clipped gradient, then
@@ -18,6 +18,12 @@ they were, but the step counter still advances: the logged ``lr`` reads
 the step counter, the applied rate the update count, as in the JAX
 package. Telling the host whether a step is finite costs one
 synchronisation a step.
+
+Batches are (B, N) waveforms, (B, C, N) multichannel waveforms (7ch
+training, with ``ipd_index``: the model input is channel 0's raw magnitude
+and the IPD of the channel pairs, as the JAX package's), or encoded mixing
+recipes (``data/device_mixer.py``), which ``to_device`` materialises on
+the device with the ``DeviceMixer`` the step is handed.
 
 ``state()``/``load_state()`` convert to and from the JAX package's layout
 (``checkpoint.TrainState``): params and batch_stats through the models'
@@ -38,7 +44,9 @@ from css_tpu_torch.device import resolve_device
 from css_tpu_torch.models import from_jax, to_jax
 from css_tpu_torch.models.conformer import set_dropout_generator
 from css_tpu_torch.objectives.base import source_keys
+from css_tpu_torch.ops import stft as stft_ops
 from css_tpu_torch.ops import stft_mag_cuda
+from css_tpu_torch.ops.features import ipd, parse_ipd_index
 from css_tpu_torch.trainer.checkpoint import (TrainState, tree_leaves,
                                               tree_unflatten)
 from css_tpu_torch.trainer.lr_schedule import LRSchedule
@@ -63,7 +71,7 @@ class Trainer:
                  optim: str = "adam", weight_decay: float = 0.0,
                  grad_thresh: float = 30.0, input_domain: str = "stft",
                  frame_len: int = 512, frame_hop: int = 256,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, ipd_index: str = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.objective = objective
@@ -71,6 +79,9 @@ class Trainer:
         self.grad_thresh = float(grad_thresh)
         self.input_domain = input_domain
         self.frame_len, self.frame_hop = frame_len, frame_hop
+        # the IPD pairs of multichannel batches: [raw ch0 magnitude, IPD]
+        # is the model input, whose MVN makes it the separator's features
+        self.ipd_pairs = parse_ipd_index(ipd_index) if ipd_index else None
         self.names = [n for n, _ in self.model.named_parameters()]
         params = [p for _, p in self.model.named_parameters()]
         if optim == "adam":
@@ -103,9 +114,7 @@ class Trainer:
             return {"input": batch["mix"], **{k: batch[k] for k in src}}
         mix = batch["mix"]
         if mix.ndim == 3:
-            raise NotImplementedError(
-                "multichannel (7ch/spatial) training is not ported yet: "
-                "ROADMAP.md Queue 1 item 8a")
+            return self._featurize_multichannel(mix, batch, src)
         if getattr(self.objective, "needs_waveforms", False):
             # resynthesis objectives take the waveforms
             out = {"input": self._mags([mix])[0], "mix_wav": mix}
@@ -128,19 +137,54 @@ class Trainer:
         out.update(zip(src, mags[1:]))
         return out
 
+    def _featurize_multichannel(self, mix, batch, src):
+        """(B, C, N): channel 0's magnitude (with the sources', one K3
+        launch) and the IPD from the matrix-product STFT of every
+        channel."""
+        if self.ipd_pairs is None:
+            raise ValueError(
+                "multichannel batches need Trainer(ipd_index=...)")
+        waveforms = getattr(self.objective, "needs_waveforms", False)
+        mags = self._mags([mix[:, 0]] + ([] if waveforms
+                                         else [batch[k] for k in src]))
+        with torch.no_grad():
+            spec = stft_ops.stft(mix, self.frame_len, self.frame_hop)
+            ip = ipd(torch.atan2(spec.imag, spec.real), *self.ipd_pairs)
+            b, m, t, f = ip.shape
+            ip = ip.transpose(1, 2).reshape(b, t, m * f)
+        out = {"input": torch.cat([mags[0], ip], dim=-1)}
+        if waveforms:
+            out["mix_wav"] = mix[:, 0]
+            out.update({k: batch[k] for k in src})
+        else:
+            out.update(zip(src, mags[1:]))
+        return out
+
     # ---------------------------------------------------------------- step
-    def to_device(self, batch) -> Dict[str, torch.Tensor]:
-        """A batch's waveform arrays as float32 tensors on the device."""
+    def to_device(self, batch, dmix=None) -> Dict[str, torch.Tensor]:
+        """A batch's waveforms as float32 tensors on the device; an
+        encoded recipe (``dm_i``, ``dm_f``, ``win``) is materialised there
+        by its ``DeviceMixer`` ``dmix``."""
+        if "dm_i" in batch:
+            if dmix is None:
+                raise ValueError("an encoded recipe batch needs its "
+                                 "DeviceMixer (dmix=)")
+            return dmix.materialize({
+                "dm_i": torch.as_tensor(batch["dm_i"]).to(
+                    self.device, torch.int32, non_blocking=True),
+                "dm_f": torch.as_tensor(batch["dm_f"]).to(
+                    self.device, torch.float32, non_blocking=True),
+                "win": batch["win"]})
         return {k: torch.as_tensor(v).to(self.device, torch.float32,
                                          non_blocking=True)
                 for k, v in batch.items() if k not in ("ovl", "lens")}
 
-    def compute_grads(self, batch):
+    def compute_grads(self, batch, dmix=None):
         """The forward and backward of a training step: (loss, aux,
         gradient norm), the unclipped gradients left in each parameter's
         ``grad``. The forward moves BatchNorm's running statistics."""
         self.model.train()
-        feats = self.featurize(self.to_device(batch))
+        feats = self.featurize(self.to_device(batch, dmix))
         loss, aux = self.objective(self.model(feats["input"]), feats)
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
@@ -150,10 +194,11 @@ class Trainer:
         return loss, aux, global_norm([p.grad for p in
                                        self.model.parameters()])
 
-    def train_step(self, batch) -> Dict[str, torch.Tensor]:
-        """One step on a batch of waveforms; returns its metrics."""
+    def train_step(self, batch, dmix=None) -> Dict[str, torch.Tensor]:
+        """One step on a batch of waveforms (or an encoded recipe and its
+        ``DeviceMixer``); returns its metrics."""
         stats = [b.clone() for b in self.model.buffers()]
-        loss, aux, norm = self.compute_grads(batch)
+        loss, aux, norm = self.compute_grads(batch, dmix)
         grads = [p.grad for p in self.model.parameters()]
         finite = bool(torch.isfinite(loss) & torch.isfinite(norm))
         if finite:
@@ -173,17 +218,24 @@ class Trainer:
         self.step += 1
         return metrics
 
-    def eval_step(self, batch) -> torch.Tensor:
+    def eval_step(self, batch, dmix=None) -> torch.Tensor:
         self.model.eval()
         with torch.no_grad():
-            feats = self.featurize(self.to_device(batch))
+            feats = self.featurize(self.to_device(batch, dmix))
             loss, _ = self.objective(self.model(feats["input"]), feats)
         return loss
 
     # --------------------------------------------------------------- loops
+    @staticmethod
+    def batch_geometry(batch):
+        """(batch size, window samples) of a waveform or recipe batch."""
+        if "dm_i" in batch:
+            return batch["dm_i"].shape[0], int(batch["win"])
+        return batch["mix"].shape[0], batch["mix"].shape[-1]
+
     def train_one_epoch(self, loader, batches_per_epoch: int,
                         log_fn: Optional[Callable] = None, sr: int = 16000,
-                        log_every: int = 50) -> float:
+                        log_every: int = 50, dmix=None) -> float:
         """A fixed-size epoch; returns the mean loss. Every ``log_every``
         steps (and at the end) ``log_fn`` gets the last step's loss,
         grad_norm and lr, the batch size and the audio seconds trained per
@@ -196,9 +248,9 @@ class Trainer:
         for done in range(1, batches_per_epoch + 1):
             batch = next(it)
             ovl = batch.get("ovl")
-            metrics = self.train_step(batch)
+            metrics = self.train_step(batch, dmix)
             losses.append(metrics["loss"])
-            bsize, n = batch["mix"].shape[0], batch["mix"].shape[-1]
+            bsize, n = self.batch_geometry(batch)
             interval_audio += bsize * n / sr
             if log_fn is not None and (done % log_every == 0
                                        or done == batches_per_epoch):
@@ -215,9 +267,9 @@ class Trainer:
                 interval_audio = 0.0
         return float(torch.stack(losses).sum()) / batches_per_epoch
 
-    def validate(self, loader, num_batches: int = 100) -> float:
+    def validate(self, loader, num_batches: int = 100, dmix=None) -> float:
         it = iter(loader)
-        losses = [self.eval_step(next(it)) for _ in range(num_batches)]
+        losses = [self.eval_step(next(it), dmix) for _ in range(num_batches)]
         return float(torch.stack(losses).mean())
 
     # ---------------------------------------------------------------- state

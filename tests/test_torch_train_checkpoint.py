@@ -264,11 +264,24 @@ def test_cli_train_refuses_what_is_not_ported(tmp_path):
     for extra, item in ([["--strategy", "dp"], "item 10"],
                         [["--tp", "2"], "item 10"],
                         [["--multihost"], "item 10"],
-                        [["--device-mix"], "item 8b"],
-                        [["--probe-sessions", "2"], "item 8c"],
-                        [["--spatialize-channels", "7"], "item 8a"]):
+                        [["--multihost", "--spatialize-channels", "7",
+                          "--device-mix", "--probe-sessions", "2"],
+                         "item 10"]):
         with pytest.raises(NotImplementedError, match=item):
             ttrain.main(base + extra)
+    # spatial training, device mixing and the probe are ported (items
+    # 8a-8c): what they refuse now is what css_tpu's CLI refuses
+    for extra, message in (
+            [["--spatialize-channels", "7", "--synthetic-rirs"],
+             "incompatible with --synthetic-rirs"],
+            [["--spatialize-channels", "7", "--model", "ConvTasNet"],
+             "needs a mask model"],
+            [["--average-probe-top", "2"], "requires --probe-sessions"]):
+        args = ["--synthetic-data", "--expdir", str(tmp_path)] + extra
+        with pytest.raises(SystemExit, match=message):
+            ttrain.main(args + ["--device", "cpu"])
+        with pytest.raises(SystemExit, match=message):
+            jtrain.main(args)
 
 
 def test_cli_defaults_to_the_card():
