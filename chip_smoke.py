@@ -109,6 +109,31 @@ Phases, each timed on its own line:
      Printed: the 7ch train step's median ms in bf16 and float32 on
      host-mixed and on device-mixed batches, and the probe's seconds per
      call, each beside the card's name and power limit.
+  8. Streaming: the session pushed in PUSH_SEC pieces, launch and
+     plain-route counts reset before and read after each streaming run.
+       (a) window mode (``StreamingCssPipeline``), the flagship at full
+           width and depth: float32 with the kernels against
+           ``CssPipeline.process`` (after peak normalisation) and against
+           the same run on the plain versions; bf16 against float32 under
+           phase 3's gates and swap controls; K3 and K1 once per window;
+           the retained audio and masks bounded; the per-push wall time
+           (median, p90) and the emitted audio's lag;
+       (b) window mode, the 7ch checkpoint on phase 5's session: against
+           ``CssPipeline.process``; K3 and K1's centered entry once per
+           window;
+       (c) hop mode (``HopStreamingPipeline``), a causal BLSTM at hidden
+           1024 x 3 layers from a numpy seed, HOP_CHUNK frames a chunk: K2
+           with a carried state against its plain version (tight float32
+           bound, single-TF32 control), K2 chained over chunks against one
+           launch, the chained stream masks against the offline causal
+           forward, push-size invariance, K2 three times a chunk, bf16
+           finite; the per-chunk wall time;
+       (d) hop mode, the flagship's weights in a causal Conformer (left
+           context 128): chained stream masks (one chunk longer than the
+           left context) against the causal forward, push-size invariance,
+           the per-chunk wall time.
+     K3, K1 and K2 at the streaming shapes against their plain versions,
+     with their times and bounds (the kernels line's ``stream`` entries).
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and last the result line ``{"ok": true, "device": {...}}``. Progress goes
 to stderr. Any failed check raises, and the exit code is then non-zero;
@@ -312,6 +337,33 @@ PROBE_CORPUS = dict(num_speakers=6, utts_per_speaker=4, seed=456,
                     f0_max=400.0, voice="formant")
 PROBE_SESSIONS, PROBE_SESSION_SEC = 2, 12.0
 PROBE_REFERENCE_DB, PROBE_ATOL_DB = 3.7355947494506836, 0.1
+# Phase 8, streaming. Window mode pushes the session in PUSH_SEC pieces.
+# Its float32 streams, peak-normalised as the offline path normalises,
+# must match CssPipeline.process on the card within STREAM_OFFLINE_ATOL,
+# the bound of tests/test_streaming.py (the streaming mask average sums the
+# same windows in another order); kernels against plain within PIPE_ATOL,
+# bf16 against float32 under phase 3's gates. Its carried state stays
+# within STREAM_BUFFER_WINDOWS windows of audio and of masks, as
+# tests/test_streaming.py holds css_tpu's.
+PUSH_SEC = 0.8
+STREAM_OFFLINE_ATOL = 5e-3
+STREAM_BUFFER_WINDOWS = 4
+# Hop mode: a causal BLSTM at hidden 1024 x 3 layers (numpy-seeded
+# weights; no causal checkpoint is committed) and the flagship's weights in
+# a causal Conformer with left context 128, on HOP_SEC of the session in
+# chunks of HOP_CHUNK frames. Chained stream masks against the offline
+# causal forward within HOP_MASK_RTOL / HOP_MASK_ATOL and push-size
+# invariance within HOP_PUSH_RTOL / HOP_PUSH_ATOL, the bounds of
+# tests/test_hop_streaming.py. Without a trained causal model there is no
+# quality gate: the gates are parity gates.
+HOP_SEC, HOP_CHUNK, HOP_LEFT_CONTEXT = 20.0, 8, 128
+HOP_SEED = 20261021
+HOP_MASK_RTOL, HOP_MASK_ATOL = 2e-4, 2e-5
+HOP_PUSH_RTOL, HOP_PUSH_ATOL = 1e-4, 1e-5
+# K2 over HOP_CHAIN_CHUNKS chunks of HOP_CHUNK frames, chained through its
+# returned state, against one launch over the whole sequence: the same
+# float32 recurrence, expected bit for bit; held to LSTM_F32_MAX_ERR
+HOP_CHAIN_CHUNKS = 18
 
 
 def log(*args):
@@ -875,6 +927,483 @@ def k1_record(torch, istft_cuda, spec, frame, hop, label):
            "library_ms": None, "bound_ms": bnd, "bound_by": by}
     log(f"K1 {label} {tuple(spec.shape)}: {json.dumps(rec)}")
     return rec
+
+
+def tf32_truncated(torch, x):
+    """x (float32) with its mantissa cut to TF32's 10 bits."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def lstm_single_tf32(torch, xw, w_hh, hidden, state):
+    """The control for K2's tight float32 bound with a carried state: the
+    plain version's recurrence with both operands of every product cut to
+    TF32 (a single-TF32 product, which no cuBLAS kernel choice can turn
+    back into a float32 one), from ``state``."""
+    h, c = state
+    w = tf32_truncated(torch, w_hh.float())
+    out = torch.empty_like(xw[..., :hidden])
+    for t in range(xw.shape[1]):
+        gates = xw[:, t] + tf32_truncated(torch, h.contiguous()) @ w
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        out[:, t] = h
+    return out
+
+
+def k2_stream_record(torch, lstm_cuda, dev):
+    """K2 with a carried state at the hop path's chunk, (1, HOP_CHUNK,
+    4096) at the causal BLSTM's hidden 1024, on row 0 of a layer's inputs
+    (lstm_layer_inputs), its state carried from the plain version over the
+    chunk before: float32 against the plain version within KERNEL_ATOL /
+    RTOL and LSTM_F32_MAX_ERR (hs and the final h and c), which a
+    single-TF32 recurrence must fail; bf16 within LSTM_BF16_ATOL; launches
+    chained over HOP_CHAIN_CHUNKS chunks against one launch over their
+    frames; the event, device and CUDA-graph times beside the plain
+    version's and cuDNN's (``torch.nn.LSTM`` from (h0, c0), the input
+    projection included), and the bound: the recurrent products at
+    3xTF32's rate against W_hh, xw, h0 and c0 read once and hs and c
+    written once."""
+    hidden = 1024
+    x, w_ih, bias, w_hh, xw = lstm_layer_inputs(torch, dev, hidden)
+    x, xw = x[:1].contiguous(), xw[:1].contiguous()
+    n = HOP_CHUNK
+    _, state = lstm_cuda.lstm_plain(xw[:, :n], w_hh, hidden,
+                                    return_state=True)
+    xc = xw[:, n: 2 * n].contiguous()
+    label = "lstm_fused stream h1024 float32"
+    got, (h_t, c_t) = counted(
+        lstm_cuda.lstm_fused, 1, label,
+        lambda: lstm_cuda.lstm_fused(xc, w_hh, hidden, state=state,
+                                     return_state=True))
+    want, (wh, wc) = lstm_cuda.lstm_plain(xc, w_hh, hidden, state=state,
+                                          return_state=True)
+    torch.cuda.synchronize()
+    err = max(check_close(label, a, b, KERNEL_ATOL, KERNEL_RTOL)
+              for a, b in ((got, want), (h_t, wh), (c_t, wc)))
+    if err > LSTM_F32_MAX_ERR:
+        raise AssertionError(f"{label}: max abs err {err:.3e} > "
+                             f"{LSTM_F32_MAX_ERR} (3xTF32's bound)")
+    ctrl_err = float((lstm_single_tf32(torch, xc, w_hh, hidden, state)
+                      - want).abs().max())
+    if not ctrl_err > LSTM_F32_MAX_ERR:
+        raise AssertionError(
+            f"{label}: a single-TF32 recurrence passes the float32 bound "
+            f"{LSTM_F32_MAX_ERR} (max abs err {ctrl_err:.3e})")
+    # bf16, its state carried in bf16 (h) and float32 (c)
+    xb, wb = xc.bfloat16(), w_hh.bfloat16()
+    sb = (state[0].bfloat16(), state[1])
+    gb = counted(lstm_cuda.lstm_fused, 1, label + " bf16",
+                 lambda: lstm_cuda.lstm_fused(xb, wb, hidden, state=sb))
+    err_b = check_close(label + " bf16", gb.float(), lstm_cuda.lstm_plain(
+        xb, wb, hidden, state=sb).float(), LSTM_BF16_ATOL, 0.0)
+    # chained over chunks against one launch over the same frames
+    whole = xw[:, : HOP_CHAIN_CHUNKS * n].contiguous()
+    one, (_, c_one) = counted(
+        lstm_cuda.lstm_fused, 1, "lstm_fused one launch",
+        lambda: lstm_cuda.lstm_fused(whole, w_hh, hidden, return_state=True))
+
+    def chained():
+        st, parts = None, []
+        for lo in range(0, whole.shape[1], n):
+            hs, st = lstm_cuda.lstm_fused(whole[:, lo: lo + n].contiguous(),
+                                          w_hh, hidden, state=st,
+                                          return_state=True)
+            parts.append(hs)
+        return torch.cat(parts, dim=1), st
+
+    chain, (_, c_chain) = counted(lstm_cuda.lstm_fused, HOP_CHAIN_CHUNKS,
+                                  "lstm_fused chained", chained)
+    chain_err = max(float((chain - one).abs().max()),
+                    float((c_chain - c_one).abs().max()))
+    if chain_err > LSTM_F32_MAX_ERR:
+        raise AssertionError(f"K2 chained over {HOP_CHAIN_CHUNKS} chunks vs "
+                             f"one launch: max abs err {chain_err:.3e} > "
+                             f"{LSTM_F32_MAX_ERR}")
+
+    def fn():
+        return lstm_cuda.lstm_fused(xc, w_hh, hidden, state=state,
+                                    return_state=True)
+
+    ref = torch.nn.LSTM(1024, hidden, batch_first=True).to(dev)
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(w_ih)
+        ref.weight_hh_l0.copy_(w_hh.t())
+        ref.bias_ih_l0.copy_(bias)
+        ref.bias_hh_l0.zero_()
+        xin = x[:, n: 2 * n].contiguous()
+        hc = (state[0][None].contiguous(), state[1][None].contiguous())
+
+        def lib_fn():
+            return ref(xin, hc)
+
+        lib_err = float((lib_fn()[0] - want).abs().max())
+        lib_ms = time_ms(torch, lib_fn)
+        lib_dev = device_ms(torch, lib_fn)
+    flops, nbytes = lstm_work(1, n, hidden, 4)
+    bnd, by = bound_ms(flops, nbytes + 4.0 * 3 * hidden, PEAK_3XTF32_FLOPS)
+    rec = {"shape": list(xc.shape), "hidden": hidden, "max_abs_err": err,
+           "single_tf32_control_err": ctrl_err, "bf16_max_abs_err": err_b,
+           "chained_chunks": HOP_CHAIN_CHUNKS, "chained_max_abs_err":
+           chain_err, "chained_bit_equal": bool(chain_err == 0.0),
+           "ms": time_ms(torch, fn), "device_ms": device_ms(torch, fn),
+           "graph_ms": graph_ms(torch, fn),
+           "plain_ms": time_ms(torch, lambda: lstm_cuda.lstm_plain(
+               xc, w_hh, hidden, state=state, return_state=True)),
+           "library_ms": lib_ms, "library_device_ms": lib_dev,
+           "library_max_abs_diff": lib_err, "bound_ms": bnd,
+           "bound_by": by}
+    log(f"K2 {label} {tuple(xc.shape)}: {json.dumps(rec)}")
+    return rec
+
+
+def stream_window_run(torch, pipe, wav, label, counters, expect):
+    """One window-mode streaming run of ``wav`` in PUSH_SEC pushes, then
+    flush, launch and plain-route counts reset just before and read just
+    after; expect=None (a plain run) skips the count checks. Returns the
+    (K, T) streams and the run's record: per-push wall seconds (median,
+    p90), the emitted audio's lag behind the input (median, max, seconds),
+    and the most audio and mask frames the pipeline retained."""
+    for c in counters:
+        c.launches = 0
+        c.plain_routes = 0
+    sr = pipe.sr
+    push = int(PUSH_SEC * sr)
+    outs, push_s, lags = [], [], []
+    pushed = emitted = 0
+    max_buf = max_masks = 0
+    t_run = time.perf_counter()
+    for i in range(0, wav.shape[-1], push):
+        t = time.perf_counter()
+        out = pipe.push(wav[..., i: i + push])
+        torch.cuda.synchronize()
+        push_s.append(time.perf_counter() - t)
+        outs.append(out)
+        pushed += min(push, wav.shape[-1] - i)
+        emitted += out.shape[-1]
+        if emitted:
+            lags.append((pushed - emitted) / sr)
+        max_buf = max(max_buf, pipe._buf.shape[-1])
+        if pipe._mask_sum is not None:
+            max_masks = max(max_masks, pipe._mask_sum.shape[0])
+    outs.append(pipe.flush())
+    sec = time.perf_counter() - t_run
+    full = np.concatenate(outs, axis=-1)
+    counts = {c.__name__: c.launches for c in counters}
+    routes = {c.__name__: c.plain_routes for c in counters}
+    if expect is not None and (counts != expect or any(routes.values())):
+        raise AssertionError(f"stream {label}: launches {counts}, plain "
+                             f"routes {routes}, expected {expect} and none")
+    if full.shape != (2, wav.shape[-1]) or not np.isfinite(full).all():
+        raise AssertionError(f"stream {label}: bad streams {full.shape}")
+    if (max_buf > STREAM_BUFFER_WINDOWS * pipe.win or max_masks
+            > STREAM_BUFFER_WINDOWS * pipe.beamformer.mask_win):
+        raise AssertionError(
+            f"stream {label}: retained {max_buf} samples and {max_masks} "
+            f"mask frames, above {STREAM_BUFFER_WINDOWS} windows")
+    rec = {"run_s": sec, "pushes": len(push_s),
+           "push_s_median": float(np.median(push_s)),
+           "push_s_p90": float(np.percentile(push_s, 90)),
+           "lag_s_median": float(np.median(lags)),
+           "lag_s_max": float(np.max(lags)),
+           "max_retained_samples": max_buf, "max_retained_frames": max_masks,
+           "launches": counts, "plain_routes": routes}
+    log(f"stream {label}: {json.dumps(rec)}")
+    return full, rec
+
+
+def peak_normalised(streams):
+    """Each stream scaled to peak 0.9, as the offline path normalises."""
+    return [o * 0.9 / max(float(np.abs(o).max()), 1e-12) for o in streams]
+
+
+def hop_features(torch, wav, dev):
+    """The hop path's magnitudes of ``wav``: uncentered frames times the
+    rDFT analysis matrix, |.| -> (1, T, bins) on ``dev``, as
+    HopStreamingPipeline computes them chunk by chunk."""
+    from css_tpu_torch.ops import stft as stft_ops
+
+    sep = CONFIG["separation"]
+    frames = stft_ops.frame_signal(torch.as_tensor(wav, device=dev),
+                                   sep["frame_length"], sep["frame_shift"])
+    spec = frames @ torch.as_tensor(
+        stft_ops.stft_analysis_kernel(sep["frame_length"]), device=dev)
+    bins = spec.shape[-1] // 2
+    return torch.sqrt(spec[:, :bins] ** 2 + spec[:, bins:] ** 2)[None]
+
+
+def stream_masks_gate(torch, model, mag, chunks, label):
+    """``model.stream`` chained over ``chunks`` (frame counts) against the
+    offline causal forward's masks, within HOP_MASK_RTOL / HOP_MASK_ATOL."""
+    with torch.no_grad():
+        _, full = model(mag)
+    carry, outs, lo = model.stream_init(1), [], 0
+    for n in chunks:
+        m, carry = model.stream(mag[:, lo: lo + n], carry)
+        outs.append(m)
+        lo += n
+    if lo != mag.shape[1]:
+        raise AssertionError(f"{label}: chunks cover {lo} of "
+                             f"{mag.shape[1]} frames")
+    got = torch.cat(outs, dim=1)
+    diff = (got - full).abs()
+    worst = float((diff - HOP_MASK_RTOL * full.abs()).max())
+    err = float(diff.max())
+    if worst > HOP_MASK_ATOL or not bool(got.isfinite().all()):
+        raise AssertionError(f"{label}: chained stream masks vs the causal "
+                             f"forward: max abs err {err:.3e} (rtol "
+                             f"{HOP_MASK_RTOL}, atol {HOP_MASK_ATOL})")
+    return err
+
+
+def hop_run(torch, pipe, wav, sizes):
+    """``wav`` pushed into a HopStreamingPipeline in pieces of ``sizes``
+    (cycled), then flush: the (K, T) streams, and the wall seconds of each
+    push that ran a chunk (synchronised)."""
+    outs, chunk_s, pos, i = [], [], 0, 0
+    while pos < wav.shape[-1]:
+        n = sizes[i % len(sizes)]
+        t = time.perf_counter()
+        out = pipe.push(wav[pos: pos + n])
+        torch.cuda.synchronize()
+        if out.shape[-1]:
+            chunk_s.append(time.perf_counter() - t)
+        outs.append(out)
+        pos, i = pos + n, i + 1
+    outs.append(pipe.flush())
+    full = np.concatenate(outs, axis=-1)
+    if full.shape != (2, wav.shape[-1]) or not np.isfinite(full).all():
+        raise AssertionError(f"hop stream: bad streams {full.shape}")
+    return full, chunk_s
+
+
+def push_invariance(torch, make_pipe, wav, label):
+    """One chunk a push against irregular pushes, within HOP_PUSH_RTOL /
+    HOP_PUSH_ATOL; returns the first run's streams and per-chunk seconds
+    and the largest difference."""
+    chunk = HOP_CHUNK * CONFIG["separation"]["frame_shift"]
+    a, chunk_s = hop_run(torch, make_pipe(), wav, [chunk])
+    b, _ = hop_run(torch, make_pipe(), wav, [700, 3000, 11, 8000])
+    diff = np.abs(a - b)
+    if (diff > HOP_PUSH_ATOL + HOP_PUSH_RTOL * np.abs(b)).any():
+        raise AssertionError(f"{label}: push sizes change the output by "
+                             f"{diff.max():.3e}")
+    return a, chunk_s, float(diff.max())
+
+
+def stream_path(torch, dev, results, counters, kernels, mix, srcs, gate,
+                boundaries, smi_line):
+    """Phase 8 (module docstring); returns the stream record."""
+    from css_tpu_torch.cli.separate import load_model
+    from css_tpu_torch.executor.hop_streaming import HopStreamingPipeline
+    from css_tpu_torch.executor.pipeline import CssPipeline
+    from css_tpu_torch.executor.streaming import StreamingCssPipeline
+    from css_tpu_torch.models import (blstm, build_model,
+                                      state_dict_from_checkpoint)
+    from css_tpu_torch.trainer.checkpoint import load_checkpoint
+
+    stft_mag_cuda, istft_cuda, lstm_cuda = kernels
+    shapes = main_shapes()
+    frame, hop, n_windows = shapes["frame"], shapes["hop"], shapes["n_windows"]
+    sr = CONFIG["sampling_rate"]
+    record = {}
+
+    # K3 and K1 at the window mode's shapes: one separator window, and one
+    # emitted window's K = 2 masked streams
+    x = torch.as_tensor(mix[None, : shapes["win"]].copy(), device=dev)
+    k3_stream = k3_record(torch, stft_mag_cuda, x, frame, hop,
+                          "stft_mag stream")
+    spec = istft_input(torch, dev)[:2].contiguous()
+    k1_stream = k1_record(torch, istft_cuda, spec, frame, hop,
+                          "istft stream")
+    del x, spec
+
+    # (a) window mode, the flagship
+    model = load_model(CHECKPOINT)
+    model.compute_dtype = torch.float32
+    expect = {"stft_mag": n_windows, "istft": n_windows, "lstm_fused": 0}
+
+    def window(cfg, wav, label, plain=False):
+        pipe = StreamingCssPipeline(model, cfg, device=dev)
+        if not plain:
+            return stream_window_run(torch, pipe, wav, label, counters,
+                                     expect)
+        with plain_kernels(stft_mag_cuda, istft_cuda, lstm_cuda):
+            out, rec = stream_window_run(torch, pipe, wav, label, counters,
+                                         None)
+        if any(rec["launches"].values()):
+            raise AssertionError(f"plain stream launched {rec['launches']}")
+        return out, rec
+
+    window(CONFIG, mix, "window float32 (cold)")
+    out_f, rec_f = window(CONFIG, mix, "window float32")
+    offline = CssPipeline(model, CONFIG, device=dev).process(mix)
+    norm_f = peak_normalised(out_f)
+    off_err = max(float(np.abs(a - b).max()) for a, b in zip(norm_f, offline))
+    if off_err > STREAM_OFFLINE_ATOL:
+        raise AssertionError(f"window stream vs CssPipeline.process: max abs "
+                             f"err {off_err:.3e} > {STREAM_OFFLINE_ATOL}")
+    out_p, _ = window(CONFIG, mix, "window float32 plain", plain=True)
+    plain_err = max(float(np.abs(a - b).max()) for a, b in
+                    zip(norm_f, peak_normalised(out_p)))
+    if plain_err > PIPE_ATOL:
+        raise AssertionError(f"window stream with kernels vs plain: max abs "
+                             f"err {plain_err:.3e} > {PIPE_ATOL}")
+    model.compute_dtype = torch.bfloat16
+    out_h, rec_h = window(CONFIG, mix, "window bf16")
+    norm_h = peak_normalised(out_h)
+    for where, start in boundaries.items():
+        if gate(f"stream control, float32 swapped from the {where} "
+                f"boundary", swapped_from(norm_f, start), norm_f)[0]:
+            raise AssertionError(f"the bf16 gate passes the float32 stream "
+                                 f"swapped from the {where} boundary")
+    ok, snr = gate("stream bf16 vs float32", norm_h, norm_f)
+    if not ok:
+        raise AssertionError("stream bf16 vs float32: below the gate's "
+                             "floors")
+    record["window"] = {"float32": rec_f, "bf16": rec_h,
+                        "vs_offline_max_abs_err": off_err,
+                        "vs_plain_max_abs_err": plain_err,
+                        "bf16_si_snr_db": snr}
+    print("stream_window " + json.dumps(record["window"]), flush=True)
+    del model
+
+    # (b) window mode, the 7ch checkpoint on phase 5's session
+    model = load_model(CHECKPOINT_7CH)
+    model.compute_dtype = torch.float32
+    rec7 = session_7ch(srcs)
+    out7, rec_7 = window(CONFIG_7CH, rec7, "window 7ch float32")
+    off7 = CssPipeline(model, CONFIG_7CH, device=dev).process(rec7)
+    off7_err = max(float(np.abs(a - b).max()) for a, b in
+                   zip(peak_normalised(out7), off7))
+    if off7_err > STREAM_OFFLINE_ATOL:
+        raise AssertionError(f"7ch window stream vs CssPipeline.process: max "
+                             f"abs err {off7_err:.3e} > {STREAM_OFFLINE_ATOL}")
+    record["window_7ch"] = dict(rec_7, vs_offline_max_abs_err=off7_err)
+    print("stream_window_7ch " + json.dumps(record["window_7ch"]), flush=True)
+    del model, rec7
+    torch.cuda.empty_cache()
+
+    wav = mix[: int(HOP_SEC * sr)]
+    mag = hop_features(torch, wav, dev)
+    t_frames = mag.shape[1]
+    chunks = [HOP_CHUNK] * (t_frames // HOP_CHUNK)
+    chunks += [t_frames - sum(chunks)] if t_frames % HOP_CHUNK else []
+
+    def counted_steps(pipe):
+        """Count the pipeline's device steps (one chunk each)."""
+        step, pipe.steps = pipe._step, 0
+
+        def wrapped(frames):
+            pipe.steps += 1
+            return step(frames)
+
+        pipe._step = wrapped
+        return pipe
+
+    # (c) hop mode, a causal BLSTM at full width from a numpy seed
+    conf = {"blstm_hdim": 1024, "blstm_num_layers": 3, "blstm_causal": True}
+    model = blstm.BLSTM.build_model(conf)
+    model.load_state_dict(blstm.params_from_jax(
+        blstm.init_params(HOP_SEED, conf)))
+    model = model.to(dev).eval()
+    n_layers = len(model.encoders)
+    mask_err = counted(lstm_cuda.lstm_fused, n_layers * (len(chunks) + 1),
+                       "hop blstm masks", lambda: stream_masks_gate(
+                           torch, model, mag, chunks, "hop blstm"))
+    pipes = []
+
+    def blstm_pipe():
+        pipes.append(counted_steps(HopStreamingPipeline(
+            model, CONFIG, chunk_frames=HOP_CHUNK, device=dev)))
+        return pipes[-1]
+
+    for c in counters:
+        c.launches = 0
+        c.plain_routes = 0
+    out_c, chunk_s, push_err = push_invariance(torch, blstm_pipe, wav,
+                                               "hop blstm")
+    counts = {c.__name__: c.launches for c in counters}
+    routes = {c.__name__: c.plain_routes for c in counters}
+    steps = sum(p.steps for p in pipes)
+    if (counts != {"stft_mag": 0, "istft": 0,
+                   "lstm_fused": n_layers * steps} or any(routes.values())):
+        raise AssertionError(f"hop blstm: launches {counts}, plain routes "
+                             f"{routes}, expected {n_layers} K2 a chunk over "
+                             f"{steps} chunks and none")
+    model.compute_dtype = torch.bfloat16
+    out_cb, _ = hop_run(torch, HopStreamingPipeline(
+        model, CONFIG, chunk_frames=HOP_CHUNK, device=dev), wav,
+        [HOP_CHUNK * hop])
+    record["hop_blstm"] = {
+        "seconds": HOP_SEC, "frames": t_frames, "chunk_frames": HOP_CHUNK,
+        "chunks_per_run": pipes[0].steps,
+        "k2_per_chunk": n_layers, "launches": counts,
+        "chunk_s_median": float(np.median(chunk_s)),
+        "chunk_s_p90": float(np.percentile(chunk_s, 90)),
+        "stream_vs_offline_masks_max_abs_err": mask_err,
+        "push_invariance_max_abs_diff": push_err,
+        "bf16_finite": bool(np.isfinite(out_cb).all()),
+        "bf16_vs_float32_max_abs_diff": float(np.abs(out_cb - out_c).max())}
+    print("stream_hop_blstm " + json.dumps(record["hop_blstm"]), flush=True)
+    del model, pipes
+    torch.cuda.empty_cache()
+
+    # (d) hop mode, the flagship's weights in a causal Conformer
+    ckpt = load_checkpoint(CHECKPOINT)
+    model = build_model("Conformer", dict(
+        ckpt.get("conf", {}), conformer_causal=True,
+        conformer_left_context=HOP_LEFT_CONTEXT))
+    model.load_state_dict(state_dict_from_checkpoint("Conformer", ckpt))
+    model = model.to(dev).eval()
+    model.compute_dtype = torch.float32
+    # one chunk longer than the left context, the rest of HOP_CHUNK frames
+    long_chunk = 2 * HOP_LEFT_CONTEXT
+    head = [HOP_CHUNK] * 8 + [long_chunk]
+    rest = t_frames - sum(head)
+    conf_chunks = head + [HOP_CHUNK] * (rest // HOP_CHUNK) + (
+        [rest % HOP_CHUNK] if rest % HOP_CHUNK else [])
+    mask_err_c = stream_masks_gate(torch, model, mag, conf_chunks,
+                                   "hop conformer")
+    for c in counters:
+        c.launches = 0
+        c.plain_routes = 0
+    _, chunk_c, push_err_c = push_invariance(
+        torch, lambda: HopStreamingPipeline(model, CONFIG,
+                                            chunk_frames=HOP_CHUNK,
+                                            device=dev), wav, "hop conformer")
+    routes = {c.__name__: c.plain_routes for c in counters}
+    if any(routes.values()):
+        raise AssertionError(f"hop conformer: plain routes {routes}")
+    record["hop_conformer"] = {
+        "seconds": HOP_SEC, "left_context": HOP_LEFT_CONTEXT,
+        "longest_chunk": long_chunk,
+        "launches": {c.__name__: c.launches for c in counters},
+        "chunk_s_median": float(np.median(chunk_c)),
+        "chunk_s_p90": float(np.percentile(chunk_c, 90)),
+        "stream_vs_offline_masks_max_abs_err": mask_err_c,
+        "push_invariance_max_abs_diff": push_err_c}
+    print("stream_hop_conformer " + json.dumps(record["hop_conformer"]),
+          flush=True)
+    del model, mag
+    torch.cuda.empty_cache()
+
+    for r in results:
+        name = r["name"]
+        r["launches_by_path"]["stream_window"] = rec_f["launches"][name]
+        r["launches_by_path"]["stream_window_7ch"] = rec_7["launches"][name]
+        r["launches_by_path"]["stream_hop_blstm"] = \
+            record["hop_blstm"]["launches"][name]
+        r["launches_by_path"]["stream_hop_conformer"] = \
+            record["hop_conformer"]["launches"][name]
+        if name == "stft_mag":
+            r["stream"] = dict(k3_stream, launches="1 per separator window "
+                               f"({n_windows} a 60 s session)")
+        elif name == "istft":
+            r["stream"] = dict(k1_stream, launches="1 per emitted window "
+                               f"({n_windows} a 60 s session)")
+    record["smi"] = smi_line
+    return record
 
 
 def kernel_step_gate(torch, trainer, batch, control, label, kernels):
@@ -1633,16 +2162,21 @@ def main() -> int:
             flush=True)
     dev2 = device_ms(torch, lambda: lstm_cuda.lstm_fused(xw32, w_hh32, 512))
     del xw, w_hh, xw32, w_hh32
+    # K2 with a carried state at the hop path's chunk (phase 8's shape)
+    k2_stream = k2_stream_record(torch, lstm_cuda, dev)
     main2 = lstm_cases[0]  # hidden 512, float32, forward: the BLSTM's
     results.append({
         "name": "lstm_fused", "route": "cuda",
         "source": "css_tpu_torch/csrc/lstm.cu",
         "replaces": "css_tpu/ops/lstm_pallas.py:103",
         "launches": None, "max_abs_err": max(
-            c["max_abs_err"] for c in lstm_cases if c["dtype"] == "float32"),
+            [c["max_abs_err"] for c in lstm_cases if c["dtype"] == "float32"]
+            + [k2_stream["max_abs_err"]]),
         "ms": main2["ms"], "plain_ms": main2["plain_ms"],
         "bound_ms": main2["bound_ms"], "bound_by": main2["bound_by"],
-        "library_ms": lib2, "device_ms": dev2})
+        "library_ms": lib2, "device_ms": dev2,
+        "stream": dict(k2_stream, launches="3 per chunk (one per layer) on "
+                       "the hop path's causal BLSTM")})
     phase("kernels", t0)
 
     counters = (stft_mag_cuda.stft_mag, istft_cuda.istft,
@@ -1914,6 +2448,23 @@ def main() -> int:
           f" probe s {rec7['probe_s']}; recipe run {rec7['recipe_s']:.1f} s; "
           f"{smi_line}", flush=True)
     phase("conformer 7ch train path", t0)
+
+    # ------------------------------------------------------- 8. streaming
+    t0 = time.perf_counter()
+    rec8 = stream_path(torch, dev, results, counters,
+                       (stft_mag_cuda, istft_cuda, lstm_cuda), mix, srcs,
+                       bf16_gate, boundaries, smi_line)
+    w, h = rec8["window"]["float32"], rec8["hop_blstm"]
+    print(f"main_path stream: window mode {SESSION_SEC:.0f} s in "
+          f"{PUSH_SEC} s pushes, float32 push median "
+          f"{1e3 * w['push_s_median']:.2f} ms, p90 "
+          f"{1e3 * w['push_s_p90']:.2f} ms, lag median "
+          f"{w['lag_s_median']:.2f} s, max {w['lag_s_max']:.2f} s; hop mode "
+          f"causal BLSTM chunk median {1e3 * h['chunk_s_median']:.2f} ms, "
+          f"p90 {1e3 * h['chunk_s_p90']:.2f} ms; causal Conformer chunk "
+          f"median {1e3 * rec8['hop_conformer']['chunk_s_median']:.2f} ms; "
+          f"{smi_line}", flush=True)
+    phase("streaming", t0)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi_line, flush=True)

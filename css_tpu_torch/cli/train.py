@@ -71,9 +71,13 @@ def _conformer_args(parser):
     parser.add_argument("--conformer-relative-pos-emb", type=bool,
                         default=True)
     parser.add_argument("--conformer-causal", action="store_true",
-                        help="the causal Conformer: ROADMAP.md Queue 1 "
-                             "item 9, not ported (raises)")
-    parser.add_argument("--conformer-left-context", type=int, default=128)
+                        help="banded left-context attention + causal conv "
+                             "+ cumulative MVN: hop-granular streaming "
+                             "inference with carried KV caches "
+                             "(cli.separate --stream-mode hop)")
+    parser.add_argument("--conformer-left-context", type=int, default=128,
+                        help="attention window (frames) of the causal "
+                             "model; also the streaming KV cache size")
 
 
 def _blstm_args(parser):

@@ -11,7 +11,13 @@
 //   h_t   = sigmoid(o) * tanh(c_t)   rounded to the input type, which is
 //           both the output out[:, t] and the next step's product input
 //
-// with h_{-1} = c_{-1} = 0 and t running backward when `reverse` is set.
+// with h_{-1} = c_{-1} = 0 and t running backward when `reverse` is set;
+// or, for a chunk of a stream, from a carried state: h_{-1} = h0 (in the
+// input type, placed by the wrapper where step 0 reads h_{t-1}) and c_{-1}
+// = c0 (float32), with the final c written to c_out (the final h is
+// out[:, T-1]). The c carry stays float32, as inside one launch, so
+// launches chained over chunks compute what one launch over the whole
+// sequence computes.
 // The product runs on the tensor cores with mma.sync and float32 sums:
 // bf16 operands in one m16n8k16 bf16 product each (bf16 x bf16 products
 // are exact in float32, as DEFAULT-precision bf16 x bf16 -> f32); float32
@@ -70,6 +76,9 @@
 //     the copies and chunk barriers; the product; the rest: partial sums,
 //     gates, stores and the arrival) and writes them to phases[block][4]
 //     at the end.
+//   * With a carried state (`h0` set) step 0 runs the product as every
+//     later step does, on the h0 rows in state slot 1; its grid barrier
+//     (target 0) is met at once. Without one, step 0 skips the product.
 //
 // Bound on this card. One launch at the BLSTM's main shape (B 32, T 150,
 // h 512, float32): the product is 2 * 32 * 150 * 512 * 2048 = 10.07 GFLOP,
@@ -363,7 +372,8 @@ __device__ __forceinline__ void fence_proxy_async_global() {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_kernel(const T* __restrict__ xw, const T* __restrict__ w_hh, T* out,
-            T* state, unsigned* counter, long long* phases, int batch,
+            T* state, unsigned* counter, long long* phases,
+            const float* __restrict__ c0, float* c_out, int h0, int batch,
             int steps, int hidden, int hpad, int units, int wstride,
             int chunk, int hstride, int reverse) {
   using W = typename WType<T>::type;
@@ -421,9 +431,16 @@ lstm_kernel(const T* __restrict__ xw, const T* __restrict__ w_hh, T* out,
   const uint16_t mask = (uint16_t)((1u << csize) - 1);
   const unsigned nblocks = gridDim.x;
 
+  // this thread's cells' c: c0's rows, or zero
   float c_reg[kItems];
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) c_reg[i] = 0.f;
+  for (int i = 0; i < kItems; ++i) {
+    const int item = tid + i * kThreads;
+    const int unit = unit0 + item % units;
+    c_reg[i] = c0 != nullptr && item < n_items && unit < hidden
+                   ? c0[(size_t)(item / units) * hidden + unit]
+                   : 0.f;
+  }
   uint32_t parity = 0;
   long long cyc_wait = 0, cyc_stage = 0, cyc_prod = 0, cyc_gates = 0;
 
@@ -445,7 +462,7 @@ lstm_kernel(const T* __restrict__ xw, const T* __restrict__ w_hh, T* out,
     }
 
     long long c_mark = clock64();
-    if (s > 0) {
+    if (s > 0 || h0) {
       // grid barrier: every block has written h_{s-1}
       if (tid == 0) {
         const unsigned target = nblocks * (unsigned)s;
@@ -456,7 +473,8 @@ lstm_kernel(const T* __restrict__ xw, const T* __restrict__ w_hh, T* out,
       cyc_wait += c_now - c_mark;
       c_mark = c_now;
 
-      const T* hsrc = state + (size_t)((s - 1) & 1) * batch * hpad;
+      // h_{s-1}: slot 1 at step 0 (h0), then the slots alternate
+      const T* hsrc = state + (size_t)((s + 1) & 1) * batch * hpad;
       Product<T> prod;
       prod.zero();
 
@@ -502,7 +520,7 @@ lstm_kernel(const T* __restrict__ xw, const T* __restrict__ w_hh, T* out,
       const int unit = unit0 + uu;
       if (item >= n_items || unit >= hidden) continue;
       float dot[4] = {0.f, 0.f, 0.f, 0.f};
-      if (s > 0) {
+      if (s > 0 || h0) {
         const float* p = part + b * npad + 4 * uu;
         for (int w = 0; w < kWarps; ++w, p += kRowsS * npad) {
           const float4 v = *reinterpret_cast<const float4*>(p);
@@ -527,6 +545,15 @@ lstm_kernel(const T* __restrict__ xw, const T* __restrict__ w_hh, T* out,
     if (tid == 0) arrive_release(counter);
     if (s > 0) cyc_gates += clock64() - c_mark;
   }
+  if (c_out != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int item = tid + i * kThreads;
+      const int unit = unit0 + item % units;
+      if (item < n_items && unit < hidden)
+        c_out[(size_t)(item / units) * hidden + unit] = c_reg[i];
+    }
+  }
   // no block leaves while a copy of its cluster may still be in flight
   cluster.sync();
   if (phases != nullptr && tid == 0) {
@@ -540,10 +567,10 @@ lstm_kernel(const T* __restrict__ xw, const T* __restrict__ w_hh, T* out,
 
 template <typename T>
 int launch(const void* xw_v, const void* w_hh_v, void* out_v, void* state_v,
-           unsigned* counter, long long* phases, int batch, int steps,
-           int hidden, int hpad, int units, int wstride, int chunk,
-           int hstride, int blocks, int reverse, int device,
-           cudaStream_t stream) {
+           unsigned* counter, long long* phases, const float* c0,
+           float* c_out, int h0, int batch, int steps, int hidden, int hpad,
+           int units, int wstride, int chunk, int hstride, int blocks,
+           int reverse, int device, cudaStream_t stream) {
   int smem_max = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -586,9 +613,9 @@ int launch(const void* xw_v, const void* w_hh_v, void* out_v, void* state_v,
   if (active * kCluster < blocks) return -2;  // not all co-resident
   err = cudaLaunchKernelEx(&config, kern, static_cast<const T*>(xw_v),
                            static_cast<const T*>(w_hh_v), static_cast<T*>(out_v),
-                           static_cast<T*>(state_v), counter, phases, batch,
-                           steps, hidden, hpad, units, wstride, chunk, hstride,
-                           reverse);
+                           static_cast<T*>(state_v), counter, phases, c0,
+                           c_out, h0, batch, steps, hidden, hpad, units,
+                           wstride, chunk, hstride, reverse);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -597,14 +624,18 @@ int launch(const void* xw_v, const void* w_hh_v, void* out_v, void* state_v,
 
 // xw (B, T, 4h), w_hh (h, 4h), out (B, T, h): contiguous, float32 (bf16 =
 // 0) or bfloat16 (bf16 = 1); state (2, B, hpad) zeroed scratch of the same
-// type; counter one zeroed unsigned; phases null or (blocks, 4) int64. The
+// type; counter one zeroed unsigned; phases null or (blocks, 4) int64. A
+// carried state: h0 = 1 when the wrapper has put h_{-1} in state slot 1
+// (rows (B, hpad) at state + B*hpad, padding zero); c0 null or (B, h)
+// float32; c_out null or (B, h) float32, written with the final c. The
 // layout (hpad, units, wstride, chunk, hstride, blocks in clusters of
 // kCluster) is the wrapper's plan.
 // Returns 0 when launched, -1 for a plan this kernel or card does not take,
 // -2 when the clusters cannot all be co-resident, else the cudaError_t of
 // the launch.
 extern "C" int css_lstm(const void* xw, const void* w_hh, void* out,
-                        void* state, void* counter, void* phases, int batch,
+                        void* state, void* counter, void* phases,
+                        const void* c0, void* c_out, int h0, int batch,
                         int steps, int hidden, int hpad, int units,
                         int wstride, int chunk, int hstride, int blocks,
                         int reverse, int bf16, int device,
@@ -615,11 +646,13 @@ extern "C" int css_lstm(const void* xw, const void* w_hh, void* out,
   cudaStream_t s = (cudaStream_t)stream;
   unsigned* cnt = static_cast<unsigned*>(counter);
   long long* ph = static_cast<long long*>(phases);
-  return bf16 ? launch<__nv_bfloat16>(xw, w_hh, out, state, cnt, ph, batch,
-                                      steps, hidden, hpad, units, wstride,
-                                      chunk, hstride, blocks, reverse,
-                                      device, s)
-              : launch<float>(xw, w_hh, out, state, cnt, ph, batch, steps,
-                              hidden, hpad, units, wstride, chunk, hstride,
-                              blocks, reverse, device, s);
+  const float* c_in = static_cast<const float*>(c0);
+  float* c_fin = static_cast<float*>(c_out);
+  return bf16 ? launch<__nv_bfloat16>(xw, w_hh, out, state, cnt, ph, c_in,
+                                      c_fin, h0, batch, steps, hidden, hpad,
+                                      units, wstride, chunk, hstride, blocks,
+                                      reverse, device, s)
+              : launch<float>(xw, w_hh, out, state, cnt, ph, c_in, c_fin, h0,
+                              batch, steps, hidden, hpad, units, wstride,
+                              chunk, hstride, blocks, reverse, device, s);
 }

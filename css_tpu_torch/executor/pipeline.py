@@ -113,3 +113,16 @@ class CssPipeline:
         for i, out in enumerate(outs):
             write_wav(out_dir / f"{key}_{i}.wav", out, self.sr)
         return outs
+
+
+def write_streams(key: str, streams: np.ndarray, out_dir, sr: int,
+                  peak: float = 0.9):
+    """Write {key}_{i}.wav per stream of (K, T) ``streams``, each
+    peak-normalised to ``peak``: the streaming pipelines cannot normalise
+    as they go (a causal system never knows the global peak), so their
+    CLI does it at write time, with the offline path's naming and peak."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i, o in enumerate(np.asarray(streams)):
+        write_wav(out_dir / f"{key}_{i}.wav",
+                  o * peak / max(np.abs(o).max(), 1e-12), sr)

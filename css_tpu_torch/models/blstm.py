@@ -14,8 +14,12 @@ version on the CPU. Parameters stay float32; ``compute_dtype`` (bfloat16
 when the checkpoint's conf says ``bf16``) is applied where the JAX package
 applies it, and LayerNorm normalises in float32 (``conformer.LayerNorm``).
 ``causal=True`` drops the backward direction and widens the forward LSTM
-to the full layer width. Streaming (``stream``, carried (h, c)) waits for
-ROADMAP.md Queue 1 item 9.
+to the full layer width; such a model also streams: ``stream_init`` and
+``stream`` carry the running-MVN statistics and each layer's (h, c)
+across chunks, and chained chunks give the offline forward's masks
+(``executor/hop_streaming.py``). The carried c is float32, K2's own
+numerics, where ``css_tpu``'s ``stream_init`` makes c in the compute
+dtype; in float32 the two are the same.
 
 Training mode (``model.train()``) runs the recurrence as a plain autograd
 loop with the JAX package's scan numerics (``lstm_scan(differentiable=
@@ -45,23 +49,30 @@ def lstm_scan(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
     (h, 4h) -> hs (B, T, h), gate order i, f, g, o. The eval path goes
     through ``lstm_fused`` (K2); ``differentiable=True`` (training) runs
     the JAX package's scan step as a loop that autograd records: gates,
-    c and h in xw's dtype (``css_tpu/models/blstm.py:57-76``)."""
-    if state is not None or return_state:
-        raise NotImplementedError(
-            "carried LSTM state (streaming) is not ported yet: ROADMAP.md "
-            "Queue 1 item 9")
+    c and h in xw's dtype (``css_tpu/models/blstm.py:57-76``).
+
+    ``state`` is an initial (h, c), the carry of streaming inference;
+    ``return_state=True`` returns (hs, (h, c)) with c in float32. Forward
+    only: a reverse scan has no causal carry to chain."""
     if not differentiable:
-        return lstm_cuda.lstm_fused(xw, w_hh, hidden, reverse=reverse)
+        return lstm_cuda.lstm_fused(xw, w_hh, hidden, reverse=reverse,
+                                    state=state, return_state=return_state)
+    if reverse and (state is not None or return_state):
+        raise ValueError("lstm_scan: a reverse scan has no causal carry to "
+                         "chain (state and return_state are forward only)")
     b, t, _ = xw.shape
-    h = xw.new_zeros((b, hidden))
-    c = xw.new_zeros((b, hidden))
+    if state is None:
+        h, c = xw.new_zeros((b, hidden)), xw.new_zeros((b, hidden))
+    else:
+        h, c = (v.to(xw.dtype) for v in state)
     hs = [None] * t
     for ti in (range(t - 1, -1, -1) if reverse else range(t)):
         i, f, g, o = (xw[:, ti] + h @ w_hh).chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs[ti] = h
-    return torch.stack(hs, dim=1)
+    hs = torch.stack(hs, dim=1) if t else xw.new_zeros((b, 0, hidden))
+    return (hs, (h, c.float())) if return_state else hs
 
 
 class BiLSTMLayer(nn.Module):
@@ -93,6 +104,19 @@ class BiLSTMLayer(nn.Module):
                                   differentiable=self.training))
         x = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
         return self.dropout(self.layer_norm(x))
+
+    def stream(self, x: torch.Tensor, state):
+        """A causal layer on one chunk (B, Tc, h_dim) from the carried
+        (h, c): -> (LayerNorm'd hs, the new (h, c)). Eval path, no
+        dropout."""
+        if len(self.dirs) != 1:
+            raise ValueError("stream() requires causal=True")
+        w_ih = self.w_ih_fwd.to(x.dtype)
+        w_hh = self.w_hh_fwd.to(x.dtype)
+        xw = x @ w_ih.t() + self.b_fwd.to(x.dtype)
+        hs, state = lstm_scan(xw, w_hh.t().contiguous(), self.hidden,
+                              state=state, return_state=True)
+        return self.layer_norm(hs), state
 
 
 class BLSTM(nn.Module):
@@ -134,19 +158,55 @@ class BLSTM(nn.Module):
             dropout_rate=float(conf.get("blstm_dropout_rate", 0.1)),
         )
 
-    def forward(self, f) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _mask_head(self, x: torch.Tensor) -> torch.Tensor:
         n_src = self.num_spk + self.num_noise
+        masks = F.relu(self.linear(x)).float()
+        b, t, _ = masks.shape
+        return masks.reshape(b, t, n_src, self.num_bins).transpose(2, 3)
+
+    def forward(self, f) -> Tuple[torch.Tensor, torch.Tensor]:
         x = cumulative_mvn(f)[0] if self.causal else mvn(f, dim=-2)
         x = self.embed_linear(x.to(self.compute_dtype))
         x = F.relu(self.embed_dropout(self.embed_norm(x)))
         for enc in self.encoders:
             x = enc(x)
-        masks = F.relu(self.linear(x)).float()
-        b, t, _ = masks.shape
-        masks = masks.reshape(b, t, n_src, self.num_bins).transpose(2, 3)
+        masks = self._mask_head(x)
         y_pred = torch.einsum("btfs,btf->bstf", masks[..., : self.num_spk],
                               f[..., : self.num_bins])
         return y_pred, masks
+
+    # ------------------------------------------------------------- streaming
+    def stream_init(self, batch: int = 1) -> Dict:
+        """The zero carry of ``stream`` on the model's device: the running
+        MVN's (count, sum, sumsq) and each layer's (h in the compute dtype,
+        c float32)."""
+        dev = self.embed_linear.weight.device
+        hd = self.embed_linear.out_features
+        zeros_f = torch.zeros((batch, self.embed_linear.in_features),
+                              device=dev)
+        layers = tuple(
+            (torch.zeros((batch, hd), dtype=self.compute_dtype, device=dev),
+             torch.zeros((batch, hd), device=dev))
+            for _ in self.encoders)
+        return {"mvn": (torch.zeros((), device=dev), zeros_f, zeros_f),
+                "layers": layers}
+
+    @torch.no_grad()
+    def stream(self, f: torch.Tensor, carry: Dict):
+        """Causal chunk forward: features (B, Tc, F) and the carry ->
+        (masks (B, Tc, F, S), the new carry). Chained chunks give the
+        offline forward's masks (the same running MVN and recurrence)."""
+        if not self.causal:
+            raise ValueError("stream() requires a causal=True model")
+        x, mvn_carry = cumulative_mvn(f, carry["mvn"])
+        x = F.relu(self.embed_norm(self.embed_linear(
+            x.to(self.compute_dtype))))
+        states = []
+        for enc, st in zip(self.encoders, carry["layers"]):
+            x, st = enc.stream(x, st)
+            states.append(st)
+        return self._mask_head(x), {"mvn": mvn_carry,
+                                    "layers": tuple(states)}
 
 
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,7 @@
-"""Conformer mask estimator, offline (not causal), for inference and
-training.
+"""Conformer mask estimator, offline or causal, for inference, streaming
+and training.
 
-Port of ``css_tpu/models/conformer.py:41-468``: utterance MVN, linear
+Port of ``css_tpu/models/conformer.py:41-500``: utterance MVN, linear
 embedding + LayerNorm + ReLU, N Conformer blocks (Macaron half-FFNs,
 relative-position MHSA, scalar-GLU / depthwise-conv / BatchNorm conv
 module, post-LN) and a ReLU mask head. Submodule names follow the Flax
@@ -25,7 +25,16 @@ conf says ``bf16``) is applied where the JAX package applies it:
   * attention scores, their scale and the relative-position term stay in
     the compute dtype, with a cast to float32 only at the softmax input
     and back after it (``conformer.py:91-105``).
-The causal/streaming variant waits for ROADMAP.md Queue 1 item 9.
+
+``causal=True`` (``conformer_causal`` in a checkpoint's conf) is the
+streamable variant: running MVN (``cumulative_mvn``), attention banded to
+``0 <= t - s < left_context`` (masked scores set to -1e9 in the compute
+dtype before the float32 softmax) and a depthwise conv padded on the left
+only. Causality changes no parameter, so any Conformer checkpoint loads
+into it. ``stream_init`` / ``stream`` carry the running-MVN statistics and
+each block's rolled KV cache of ``left_context`` frames (with flags for
+the slots filled so far) and conv tail of ``kernel_size - 1`` frames:
+chained chunks give the causal offline forward's masks.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from css_tpu_torch.ops.features import mvn
+from css_tpu_torch.ops.features import cumulative_mvn, mvn
 
 
 class Dense(nn.Linear):
@@ -163,23 +172,48 @@ class RelPosMultiHeadAttention(nn.Module):
         return x.reshape(b, t, self.n_head, self.n_feat // self.n_head
                          ).transpose(1, 2)
 
-    def forward(self, x, pos_k):
-        """x (B, T, n_feat), pos_k (T, T, d_k) or None."""
+    def _qkv(self, x):
         x = self.layer_norm(x)
-        q = self._heads(self.linear_q(x))
-        k = self._heads(self.linear_k(x))
-        v = self._heads(self.linear_v(x))
+        return (self._heads(self.linear_q(x)), self._heads(self.linear_k(x)),
+                self._heads(self.linear_v(x)))
+
+    def _attend(self, q, k, v, pos_k, mask):
+        """q (B, h, T, d), k and v (B, h, S, d), pos_k (T, S, d) or None,
+        mask (T, S) bool or None -> (B, T, n_feat)."""
         d_k = self.n_feat // self.n_head
         scores = q @ k.transpose(-1, -2)  # (B, h, T, S)
         if pos_k is not None:
             scores = scores + torch.einsum("bhtd,tsd->bhts", q,
                                            pos_k.to(q.dtype))
         scores = scores / math.sqrt(d_k)
+        if mask is not None:
+            scores = torch.where(mask, scores,
+                                 torch.full((), -1e9, dtype=scores.dtype,
+                                            device=scores.device))
         attn = self.drop(torch.softmax(scores.float(), dim=-1).to(q.dtype))
         out = attn @ v  # (B, h, T, d)
         b, _, t, _ = q.shape
         return self.drop(self.linear_out(
             out.transpose(1, 2).reshape(b, t, self.n_feat)))
+
+    def forward(self, x, pos_k, mask=None):
+        """x (B, T, n_feat), pos_k (T, T, d_k) or None, mask (T, T) bool
+        (True where query t may attend key s) or None."""
+        return self._attend(*self._qkv(x), pos_k, mask)
+
+    def stream(self, x, cache, pos_k, mask):
+        """A chunk (B, Tc, n_feat) attending [cached left context | the
+        chunk]. cache = (k (B, h, L, d), v (B, h, L, d), valid (L,) bool);
+        pos_k (Tc, L + Tc, d) and mask (Tc, L + Tc) over that key axis.
+        Returns (out, the cache rolled to the last L key positions)."""
+        k_c, v_c, valid = cache
+        q, k, v = self._qkv(x)
+        k_all = torch.cat([k_c, k], dim=2)
+        v_all = torch.cat([v_c, v], dim=2)
+        valid_all = torch.cat([valid, valid.new_ones(q.shape[2])])
+        out = self._attend(q, k_all, v_all, pos_k, mask & valid_all[None])
+        n = k_c.shape[2]
+        return out, (k_all[:, :, -n:], v_all[:, :, -n:], valid_all[-n:])
 
 
 class ConvModule(nn.Module):
@@ -189,62 +223,104 @@ class ConvModule(nn.Module):
     affine maps: GLU(x) = (w0 x + b0) * sigmoid(w1 x + b1)."""
 
     def __init__(self, input_dim: int, kernel_size: int,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, causal: bool = False):
         super().__init__()
+        self.kernel_size = kernel_size
+        self.causal = causal
         self.layer_norm = LayerNorm(input_dim)
         self.pw1_w = nn.Parameter(torch.ones(2))
         self.pw1_b = nn.Parameter(torch.zeros(2))
         self.dw_conv = nn.Conv1d(input_dim, input_dim, kernel_size,
-                                 padding=(kernel_size - 1) // 2,
                                  groups=input_dim)
         self.bn = BatchNorm(input_dim)
         self.pw2_w = nn.Parameter(torch.ones(1))
         self.pw2_b = nn.Parameter(torch.zeros(1))
         self.drop = Dropout(dropout_rate)
 
-    def forward(self, x):
+    def _glu(self, x):
         dt = x.dtype
         x = self.layer_norm(x)
         w, b = self.pw1_w.to(dt), self.pw1_b.to(dt)
-        x = (w[0] * x + b[0]) * torch.sigmoid(w[1] * x + b[1])
-        x = F.conv1d(x.transpose(1, 2), self.dw_conv.weight.to(dt),
-                     self.dw_conv.bias.to(dt), padding=self.dw_conv.padding,
-                     groups=self.dw_conv.groups).transpose(1, 2)
+        return (w[0] * x + b[0]) * torch.sigmoid(w[1] * x + b[1])
+
+    def _dw_conv(self, x, padding: int = 0):
+        """The depthwise conv over time of x (B, T, C), zero-padded by
+        ``padding`` frames on each side."""
+        dt = x.dtype
+        return F.conv1d(x.transpose(1, 2), self.dw_conv.weight.to(dt),
+                        self.dw_conv.bias.to(dt), padding=padding,
+                        groups=self.dw_conv.groups).transpose(1, 2)
+
+    def _post(self, x):
+        dt = x.dtype
         x = F.relu(self.bn(x))
         return self.drop(self.pw2_w.to(dt)[0] * x + self.pw2_b.to(dt)[0])
+
+    def forward(self, x):
+        x, k = self._glu(x), self.kernel_size
+        if self.causal:  # k - 1 zero frames before the first, none after
+            return self._post(self._dw_conv(F.pad(x, (0, 0, k - 1, 0))))
+        return self._post(self._dw_conv(x, (k - 1) // 2))
+
+    def stream(self, x, tail):
+        """A causal chunk (B, Tc, C) after the carried tail (B, k - 1, C) of
+        GLU outputs -> (out, the new tail). A zero tail is the causal left
+        padding, so chained chunks give the causal forward."""
+        if not self.causal:
+            raise ValueError("stream() requires causal=True")
+        full = torch.cat([tail.to(x.dtype), self._glu(x)], dim=1)
+        out = self._post(self._dw_conv(full))
+        # kernel_size 1 carries no context ([-0:] would keep everything)
+        return out, full[:, full.shape[1] - (self.kernel_size - 1):]
 
 
 class EncoderLayer(nn.Module):
     """Conformer block with Macaron residuals and post-LN."""
 
     def __init__(self, d_model: int, n_head: int, d_ffn: int,
-                 kernel_size: int, dropout_rate: float = 0.0):
+                 kernel_size: int, dropout_rate: float = 0.0,
+                 causal: bool = False):
         super().__init__()
         self.feed_forward_in = FeedForward(d_model, d_ffn, dropout_rate)
         self.self_attn = RelPosMultiHeadAttention(n_head, d_model,
                                                   dropout_rate)
-        self.conv = ConvModule(d_model, kernel_size, dropout_rate)
+        self.conv = ConvModule(d_model, kernel_size, dropout_rate, causal)
         self.feed_forward_out = FeedForward(d_model, d_ffn, dropout_rate)
         self.layer_norm = LayerNorm(d_model)
 
-    def forward(self, x, pos_k):
+    def forward(self, x, pos_k, mask=None):
         x = x + 0.5 * self.feed_forward_in(x)
-        x = x + self.self_attn(x, pos_k)
+        x = x + self.self_attn(x, pos_k, mask)
         x = x + self.conv(x)
         x = x + 0.5 * self.feed_forward_out(x)
         return self.layer_norm(x)
 
+    def stream(self, x, state, pos_k, mask):
+        """state = (the attention's KV cache, the conv tail)."""
+        kv, tail = state
+        x = x + 0.5 * self.feed_forward_in(x)
+        a, kv = self.self_attn.stream(x, kv, pos_k, mask)
+        x = x + a
+        c, tail = self.conv.stream(x, tail)
+        x = x + c
+        x = x + 0.5 * self.feed_forward_out(x)
+        return self.layer_norm(x), (kv, tail)
+
 
 class ConformerEncoder(nn.Module):
-    """Embedding + relative positions + N blocks."""
+    """Embedding + relative positions + N blocks; ``causal`` bands the
+    attention to ``0 <= t - s < left_context``."""
 
     def __init__(self, idim: int = 257, attention_dim: int = 256,
                  attention_heads: int = 4, linear_units: int = 1024,
                  num_blocks: int = 16, kernel_size: int = 33,
                  relative_pos_emb: bool = True, maxlen: int = 1000,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, causal: bool = False,
+                 left_context: int = 128):
         super().__init__()
         self.maxlen = maxlen
+        self.causal = causal
+        self.left_context = left_context
         self.embed_linear = Dense(idim, attention_dim)
         self.embed_norm = LayerNorm(attention_dim)
         self.embed_drop = Dropout(dropout_rate)
@@ -253,11 +329,18 @@ class ConformerEncoder(nn.Module):
             if relative_pos_emb else None)
         self.encoders = nn.ModuleList([
             EncoderLayer(attention_dim, attention_heads, linear_units,
-                         kernel_size, dropout_rate)
+                         kernel_size, dropout_rate, causal)
             for _ in range(num_blocks)])
 
-    def rel_pos(self, t: int) -> torch.Tensor:
-        """pe_k[clip(t - s, -maxlen, maxlen-1) + maxlen] -> (T, T, d_k): a
+    def _offsets(self, t: int) -> torch.Tensor:
+        """(T, T) frame offsets t - s."""
+        pos = torch.arange(t, device=self.embed_linear.weight.device)
+        return pos[:, None] - pos[None, :]
+
+    def rel_pos(self, rel) -> torch.Tensor:
+        """pe_k[clip(rel, -maxlen, maxlen-1) + maxlen] -> (T, S, d_k) for a
+        (T, S) integer matrix of frame offsets, or for an int T the
+        offsets t - s of T frames: a
         plain gather (the one-hot matmul of ``_relpos_band`` is a TPU
         device; both are exact). Differentiable: its backward is
         ``index_put_(accumulate=True)`` into pe_k's shape, which sums the
@@ -265,17 +348,44 @@ class ConformerEncoder(nn.Module):
         sort-based kernel, which adds each index's duplicates in a fixed
         order: deterministic from run to run (held bit-equal by a card test
         in tests/test_torch_cuda.py); on the CPU it runs serially."""
-        pos = torch.arange(t, device=self.pe_k.device)
-        rel = torch.clamp(pos[:, None] - pos[None, :], -self.maxlen,
-                          self.maxlen - 1) + self.maxlen
-        return self.pe_k[rel]
+        if isinstance(rel, int):
+            rel = self._offsets(rel)
+        return self.pe_k[torch.clamp(rel, -self.maxlen, self.maxlen - 1)
+                         + self.maxlen]
+
+    def _embed(self, xs):
+        return F.relu(self.embed_drop(self.embed_norm(self.embed_linear(xs))))
 
     def forward(self, xs):
-        xs = F.relu(self.embed_drop(self.embed_norm(self.embed_linear(xs))))
-        pos_k = self.rel_pos(xs.shape[1]) if self.pe_k is not None else None
+        xs = self._embed(xs)
+        rel = self._offsets(xs.shape[1])
+        pos_k = self.rel_pos(rel) if self.pe_k is not None else None
+        mask = ((rel >= 0) & (rel < self.left_context) if self.causal
+                else None)
         for enc in self.encoders:
-            xs = enc(xs, pos_k)
+            xs = enc(xs, pos_k, mask)
         return xs
+
+    def stream(self, xs, state):
+        """A causal chunk (B, Tc, idim) with each block's carried (KV cache,
+        conv tail) -> (out, the new states). The key axis is [L cache slots
+        | Tc chunk frames]: query i lies L + i - j frames after cache slot
+        j and i - j after chunk frame j."""
+        if not self.causal:
+            raise ValueError("stream() requires causal=True")
+        xs = self._embed(xs)
+        tc, n = xs.shape[1], self.left_context
+        dev = xs.device
+        qi = torch.arange(tc, device=dev)[:, None]
+        rel = torch.cat([n + qi - torch.arange(n, device=dev)[None, :],
+                         qi - torch.arange(tc, device=dev)[None, :]], dim=1)
+        pos_k = self.rel_pos(rel) if self.pe_k is not None else None
+        mask = (rel >= 0) & (rel < n)
+        states = []
+        for enc, st in zip(self.encoders, state):
+            xs, st = enc.stream(xs, st, pos_k, mask)
+            states.append(st)
+        return xs, tuple(states)
 
 
 class Conformer(nn.Module):
@@ -288,24 +398,24 @@ class Conformer(nn.Module):
                  num_blocks: int = 16, kernel_size: int = 33,
                  relative_pos_emb: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, causal: bool = False,
+                 left_context: int = 128):
         super().__init__()
         self.num_bins = num_bins
         self.num_spk = num_spk
         self.num_noise = num_noise
         self.compute_dtype = compute_dtype
+        self.causal = causal
+        self.left_context = left_context
         self.conformer = ConformerEncoder(
             idim, attention_dim, attention_heads, linear_units, num_blocks,
-            kernel_size, relative_pos_emb, dropout_rate=dropout_rate)
+            kernel_size, relative_pos_emb, dropout_rate=dropout_rate,
+            causal=causal, left_context=left_context)
         self.linear = Dense(attention_dim, num_bins * (num_spk + num_noise))
 
     @classmethod
     def build_model(cls, conf: Dict) -> "Conformer":
         """From a checkpoint's conf (the css_tpu training flags)."""
-        if conf.get("conformer_causal"):
-            raise NotImplementedError(
-                "the causal Conformer is not ported yet: ROADMAP.md Queue 1 "
-                "item 9")
         return cls(
             idim=int(conf.get("idim", 257)),
             num_bins=int(conf.get("num_bins", 257)),
@@ -320,17 +430,58 @@ class Conformer(nn.Module):
                                            True)),
             compute_dtype=torch.bfloat16 if conf.get("bf16") else torch.float32,
             dropout_rate=float(conf.get("conformer_dropout_rate", 0.1)),
+            causal=bool(conf.get("conformer_causal", False)),
+            left_context=int(conf.get("conformer_left_context", 128)),
         )
 
-    def forward(self, f) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _mask_head(self, x: torch.Tensor) -> torch.Tensor:
         n_src = self.num_spk + self.num_noise
-        x = self.conformer(mvn(f, dim=-2).to(self.compute_dtype))
         masks = F.relu(self.linear(x)).float()
         b, t, _ = masks.shape
-        masks = masks.reshape(b, t, n_src, self.num_bins).transpose(2, 3)
+        return masks.reshape(b, t, n_src, self.num_bins).transpose(2, 3)
+
+    def forward(self, f) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = cumulative_mvn(f)[0] if self.causal else mvn(f, dim=-2)
+        masks = self._mask_head(self.conformer(x.to(self.compute_dtype)))
         y_pred = torch.einsum("btfs,btf->bstf", masks[..., : self.num_spk],
                               f[..., : self.num_bins])
         return y_pred, masks
+
+    # ------------------------------------------------------------- streaming
+    def stream_init(self, batch: int = 1) -> Dict:
+        """The zero carry of ``stream`` on the model's device: the running
+        MVN's (count, sum, sumsq) and per block the KV cache (k, v in the
+        compute dtype, (B, heads, left_context, d_k), and no slot valid)
+        and the conv tail (B, kernel_size - 1, attention_dim)."""
+        enc = self.conformer
+        dev = enc.embed_linear.weight.device
+        dt = self.compute_dtype
+        att = enc.encoders[0].self_attn
+        dim, heads = att.n_feat, att.n_head
+        kern = enc.encoders[0].conv.kernel_size
+        zeros_f = torch.zeros((batch, enc.embed_linear.in_features),
+                              device=dev)
+        kv_shape = (batch, heads, self.left_context, dim // heads)
+        layers = tuple(
+            ((torch.zeros(kv_shape, dtype=dt, device=dev),
+              torch.zeros(kv_shape, dtype=dt, device=dev),
+              torch.zeros(self.left_context, dtype=torch.bool, device=dev)),
+             torch.zeros((batch, kern - 1, dim), dtype=dt, device=dev))
+            for _ in enc.encoders)
+        return {"mvn": (torch.zeros((), device=dev), zeros_f, zeros_f),
+                "layers": layers}
+
+    @torch.no_grad()
+    def stream(self, f: torch.Tensor, carry: Dict):
+        """Causal chunk forward: features (B, Tc, F) and the carry ->
+        (masks (B, Tc, F, S), the new carry). Chained chunks give the
+        causal offline forward's masks."""
+        if not self.causal:
+            raise ValueError("stream() requires a causal=True model")
+        x, mvn_carry = cumulative_mvn(f, carry["mvn"])
+        x, layers = self.conformer.stream(x.to(self.compute_dtype),
+                                          carry["layers"])
+        return self._mask_head(x), {"mvn": mvn_carry, "layers": layers}
 
 
 def build_model(conf: Dict) -> Conformer:

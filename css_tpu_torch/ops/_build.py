@@ -42,7 +42,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "css_istft": [_P] * 5 + [_I] * 5 + [_P],
     "css_stft_mag": [_P] * 4 + [_I] * 7 + [_P],
-    "css_lstm": [_P] * 6 + [_I] * 12 + [_P],
+    "css_lstm": [_P] * 8 + [_I] * 13 + [_P],
 }
 
 

@@ -41,6 +41,16 @@ ValueError that names the shape (the kernel's barrier would wait for a
 cluster that never starts). A batch above ``MAX_BATCH`` rows is split
 across launches (batch entries are independent, so this is exact).
 ``lstm_fused.launches`` counts kernel launches.
+
+Streaming (hop-granular, a causal LSTM over chunks of a few frames) hands
+the recurrence a carried state: ``state=(h0, c0)``, h0 (B, h) in xw's
+dtype and c0 (B, h) float32, and ``return_state=True`` returns the final
+(h, c), c in float32. The kernel reads h0 where its step 0 reads h_{t-1}
+and starts its c registers at c0, so launches chained over chunks equal
+one launch over the whole sequence. A reverse scan has no causal carry to
+chain: ``reverse`` with a state raises. (The JAX package runs the carried
+recurrence as a scan outside its Pallas kernel, with c in the compute
+dtype; in float32 the two are the same function.)
 """
 
 from __future__ import annotations
@@ -117,14 +127,41 @@ def lstm_plan(hidden: int, elem: int) -> Optional[LstmPlan]:
     return LstmPlan(units, blocks, hpad, wstride, chunk, hstride, smem)
 
 
+def _zero_state(xw: torch.Tensor, hidden: int):
+    """The zero (h in xw's dtype, c float32) of a sequence's start."""
+    b = xw.shape[0]
+    return (xw.new_zeros((b, hidden)),
+            torch.zeros((b, hidden), dtype=torch.float32, device=xw.device))
+
+
+def _initial_state(xw: torch.Tensor, hidden: int, reverse: bool, state,
+                   return_state: bool):
+    """``state`` as (h0 in xw's dtype, c0 float32), contiguous on xw's
+    device, or None without one; raises for a reverse scan with a carry."""
+    if reverse and (state is not None or return_state):
+        raise ValueError("lstm: a reverse scan has no causal carry to chain "
+                         "(state and return_state are forward only)")
+    if state is None:
+        return None
+    b = xw.shape[0]
+    h0, c0 = state
+    if tuple(h0.shape) != (b, hidden) or tuple(c0.shape) != (b, hidden):
+        raise ValueError(f"lstm state: h0 and c0 are (B, h) = {(b, hidden)},"
+                         f" got {tuple(h0.shape)} and {tuple(c0.shape)}")
+    return (h0.to(device=xw.device, dtype=xw.dtype).contiguous(),
+            c0.to(device=xw.device, dtype=torch.float32).contiguous())
+
+
 def lstm_plain(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
-               reverse: bool = False) -> torch.Tensor:
+               reverse: bool = False, state=None, return_state: bool = False):
     """The plain PyTorch version: a loop over time with the TPU kernel's
-    numerics. xw (B, T, 4h), w_hh (h, 4h) -> hs (B, T, h) in xw's dtype."""
+    numerics. xw (B, T, 4h), w_hh (h, 4h) -> hs (B, T, h) in xw's dtype;
+    with ``return_state`` also the final (h, c float32). ``state`` is the
+    initial (h0, c0), zeros without it."""
     b, t, _ = xw.shape
     w = w_hh.float()
-    h = xw.new_zeros((b, hidden))
-    c = torch.zeros((b, hidden), dtype=torch.float32, device=xw.device)
+    h, c = (_initial_state(xw, hidden, reverse, state, return_state)
+            or _zero_state(xw, hidden))
     out = torch.empty((b, t, hidden), dtype=xw.dtype, device=xw.device)
     for s in range(t):
         ti = t - 1 - s if reverse else s
@@ -133,7 +170,7 @@ def lstm_plain(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = (torch.sigmoid(o) * torch.tanh(c)).to(xw.dtype)
         out[:, ti] = h
-    return out
+    return (out, (h, c)) if return_state else out
 
 
 def _check(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> None:
@@ -153,45 +190,64 @@ def _check(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> None:
 
 
 def lstm_fused(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
-               reverse: bool = False,
-               phases: Optional[torch.Tensor] = None) -> torch.Tensor:
+               reverse: bool = False, state=None, return_state: bool = False,
+               phases: Optional[torch.Tensor] = None):
     """xw (B, T, 4h) input projections plus biases, w_hh (h, 4h) ->
-    hs (B, T, h) in xw's dtype (float32 or bfloat16).
+    hs (B, T, h) in xw's dtype (float32 or bfloat16); with
+    ``return_state`` the pair (hs, (h_T, c_T float32)). ``state`` is the
+    initial (h0, c0) of a stream's chunk (forward only), zeros without it.
 
     ``phases``, for measurement only: a CUDA int64 tensor (blocks, 4) that
     the kernel fills with each block's clock64() cycles of barrier wait,
     staging, product, and the rest (partial sums, gates, stores, arrival)
-    over steps 1..T-1 (one launch only)."""
+    over steps 1..T-1 (one launch, no state)."""
     if xw.device.type == "cpu":
-        return lstm_plain(xw, w_hh, hidden, reverse)
+        return lstm_plain(xw, w_hh, hidden, reverse, state, return_state)
     _check(xw, w_hh, hidden)
     if xw.device.type != "cuda":
         raise ValueError(f"lstm_fused: unsupported device {xw.device}")
     b, t, _ = xw.shape
+    state = _initial_state(xw, hidden, reverse, state, return_state)
+    carried = state is not None
     plan = lstm_plan(hidden, xw.element_size())
     if plan is None:
         lstm_fused.plain_routes += 1
-        return lstm_plain(xw, w_hh, hidden, reverse)
+        return lstm_plain(xw, w_hh, hidden, reverse, state, return_state)
     out = torch.empty((b, t, hidden), dtype=xw.dtype, device=xw.device)
     if b == 0 or t == 0:
-        return out
+        if not return_state:
+            return out
+        return out, state or _zero_state(xw, hidden)
+    h0, c0 = state if carried else (None, None)
+    c_out = (torch.empty((b, hidden), dtype=torch.float32, device=xw.device)
+             if return_state else None)
     parts = _build.split_rows(b, MAX_BATCH)
     if phases is not None and (len(parts) != 1 or phases.dtype != torch.int64
-                               or phases.shape != (plan.blocks, 4)):
-        raise ValueError(f"lstm phases: one launch and an int64 "
-                         f"({plan.blocks}, 4) buffer")
-    state = torch.zeros((2, MAX_BATCH, plan.hpad), dtype=xw.dtype,
+                               or phases.shape != (plan.blocks, 4)
+                               or carried):
+        raise ValueError(f"lstm phases: one launch without a state and an "
+                         f"int64 ({plan.blocks}, 4) buffer")
+    slots = torch.zeros((2, MAX_BATCH, plan.hpad), dtype=xw.dtype,
                         device=xw.device)
     counters = torch.zeros(len(parts), dtype=torch.int32, device=xw.device)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(xw.device).cuda_stream
     for i, (lo, hi) in enumerate(parts):
+        if carried:
+            # h0's rows where step 0 reads h_{t-1}: slot 1 of a launch of
+            # hi - lo rows, (hi - lo, hpad) at offset (hi - lo) * hpad; the
+            # padding columns stay zero (the kernel writes units < hidden)
+            n = hi - lo
+            slots.view(-1)[n * plan.hpad: 2 * n * plan.hpad].view(
+                n, plan.hpad)[:, :hidden].copy_(h0[lo:hi])
         err = lib.css_lstm(
             xw[lo].data_ptr(), w_hh.data_ptr(), out[lo].data_ptr(),
-            state.data_ptr(), counters[i].data_ptr(),
-            None if phases is None else phases.data_ptr(), hi - lo, t,
-            hidden, plan.hpad, plan.units, plan.wstride, plan.chunk,
-            plan.hstride, plan.blocks, int(reverse),
+            slots.data_ptr(), counters[i].data_ptr(),
+            None if phases is None else phases.data_ptr(),
+            c0[lo].data_ptr() if carried else None,
+            None if c_out is None else c_out[lo].data_ptr(), int(carried),
+            hi - lo, t, hidden, plan.hpad, plan.units, plan.wstride,
+            plan.chunk, plan.hstride, plan.blocks, int(reverse),
             int(xw.dtype == torch.bfloat16), xw.device.index or 0, stream)
         if err == SHAPE_REFUSED:
             raise ValueError(f"lstm kernel: xw {tuple(xw.shape)} (batch "
@@ -206,7 +262,7 @@ def lstm_fused(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
                              f"on this card")
         _build.check(err, "lstm_fused")
         lstm_fused.launches += 1
-    return out
+    return (out, (out[:, -1].contiguous(), c_out)) if return_state else out
 
 
 def phase_split(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,

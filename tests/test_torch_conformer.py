@@ -183,6 +183,23 @@ def test_conformer_matches_bfloat16(small_pair):
     assert float((m32 - m_got).abs().max()) > 1e-4
 
 
-def test_causal_conf_is_refused():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tc.build_model({"conformer_causal": True})
+def test_causal_conf_builds_the_causal_model(small_pair):
+    """conformer_causal (ported): the flagship-layout weights load into the
+    causal model unchanged, and its masks are css_tpu's causal model's
+    (banded attention, left-padded conv, running MVN), float32."""
+    _, variables, _ = small_pair
+    conf = {"conformer_attention_dim": 64, "conformer_attention_heads": 4,
+            "conformer_linear_units": 128, "conformer_num_blocks": 2,
+            "conformer_kernel_size": 7, "conformer_causal": True,
+            "conformer_left_context": 12}
+    jm = jc.Conformer.build_model(conf)
+    tm = tc.build_model(conf)
+    assert tm.causal and tm.left_context == 12
+    tm.load_state_dict(tc.params_from_jax(variables["params"],
+                                          variables["batch_stats"]))
+    f = np.abs(_x((2, 30, 257), 5))
+    _, m_want = jm.apply(variables, jnp.asarray(f))
+    with torch.no_grad():
+        _, m_got = tm.eval()(torch.as_tensor(f))
+    np.testing.assert_allclose(m_got.numpy(), np.asarray(m_want), atol=ATOL,
+                               rtol=RTOL)

@@ -304,6 +304,74 @@ def test_lstm_kernel_splits_the_batch(card, b, t, h, n_launch, dtype,
                                    atol=LSTM_BF16_ATOL, rtol=0)
 
 
+def _carry(b, h, dtype, seed, dev):
+    """A stream's carried (h0 in dtype, c0 float32), h0 in (-1, 1)."""
+    rng = np.random.default_rng(seed)
+    h0 = np.tanh(rng.standard_normal((b, h))).astype(np.float32)
+    c0 = rng.standard_normal((b, h)).astype(np.float32)
+    return (torch.as_tensor(h0, device=dev).to(dtype),
+            torch.as_tensor(c0, device=dev))
+
+
+def _lstm_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+        assert float((got - want).abs().max()) <= LSTM_F32_MAX_ERR
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=LSTM_BF16_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h,n_launch", [(1, 8, 1024, 1),
+                                            (5, 37, 128, 1),
+                                            (40, 9, 512, 2)])
+def test_lstm_kernel_carried_state_matches_plain(card, b, t, h, n_launch,
+                                                 dtype):
+    """A carried (h0, c0) in and the final (h, c) out (streaming's chunk
+    shape (1, 8, 4096) at hidden 1024 first): kernel against the plain
+    version, the batch split across launches with each part's rows of h0
+    and c0."""
+    xw, w_hh = _lstm_inputs(b, t, h, dtype, b + h + 1, card)
+    state = _carry(b, h, dtype, b + h + 2, card)
+    before = lstm_cuda.lstm_fused.launches
+    got, (h_t, c_t) = lstm_cuda.lstm_fused(xw, w_hh, h, state=state,
+                                           return_state=True)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_fused.launches == before + n_launch
+    want, (wh, wc) = lstm_cuda.lstm_plain(xw, w_hh, h, state=state,
+                                          return_state=True)
+    assert c_t.dtype == torch.float32 and h_t.dtype == dtype
+    _lstm_close(got, want, dtype)
+    _lstm_close(h_t, wh, dtype)
+    torch.testing.assert_close(c_t, wc, atol=LSTM_BF16_ATOL
+                               if dtype == torch.bfloat16 else ATOL,
+                               rtol=0 if dtype == torch.bfloat16 else RTOL)
+    # the state changes the result (step 0 ran its product)
+    assert float((got.float() - lstm_cuda.lstm_fused(
+        xw, w_hh, h).float()).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("h", [512, 1024])
+def test_lstm_kernel_chained_chunks_equal_one_launch(card, h):
+    """Launches chained over 8-frame chunks through the returned state
+    equal one launch over the whole sequence (float32 carry; expected bit
+    for bit, held to the tight float32 bound)."""
+    xw, w_hh = _lstm_inputs(1, 40, h, torch.float32, h + 5, card)
+    whole, (h_w, c_w) = lstm_cuda.lstm_fused(xw, w_hh, h, return_state=True)
+    state, parts = None, []
+    for lo in range(0, 40, 8):
+        hs, state = lstm_cuda.lstm_fused(xw[:, lo:lo + 8].contiguous(), w_hh,
+                                         h, state=state, return_state=True)
+        parts.append(hs)
+    got = torch.cat(parts, dim=1)
+    assert float((got - whole).abs().max()) <= LSTM_F32_MAX_ERR
+    assert float((state[1] - c_w).abs().max()) <= LSTM_F32_MAX_ERR
+    with pytest.raises(ValueError, match="reverse"):
+        lstm_cuda.lstm_fused(xw, w_hh, h, reverse=True, state=state)
+
+
 @pytest.mark.parametrize("h", [512, 1024])
 def test_lstm_f32_bound_catches_single_tf32(card, h):
     """The control for the tight float32 bound: the plain version with its

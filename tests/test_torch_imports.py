@@ -38,7 +38,8 @@ print(" ".join(names))
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.strip().splitlines()
     assert int(count) >= 20
-    # the 7ch slice's modules, the training slices' are among them
+    # the 7ch slice's modules, the training slices' and the streaming
+    # slice's are among them
     for name in ("executor.doa", "executor.reanchor", "ops.mvdr",
                  "data.spatial", "ops.pit", "objectives", "objectives.base",
                  "objectives.mse", "objectives.snr", "objectives.masksnr",
@@ -46,7 +47,8 @@ print(" ".join(names))
                  "models.conv_tasnet", "data.corpus", "data.augment",
                  "data.mixer", "data.loader", "utils.logging", "cli.train",
                  "cli.combine", "data.device_mixer", "data.sessions",
-                 "ops.native", "trainer.probe", "utils.metrics"):
+                 "ops.native", "trainer.probe", "utils.metrics",
+                 "executor.streaming", "executor.hop_streaming"):
         assert "css_tpu_torch." + name in names.split()
 
 

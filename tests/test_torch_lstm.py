@@ -99,15 +99,28 @@ def test_kernel_path_refuses_what_the_kernel_does_not_take():
     assert lstm_cuda.lstm_fused.launches == before
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"differentiable": True, "return_state": True}, "item 9"),
-    ({"return_state": True}, "item 9"),
-    ({"state": (torch.zeros(2, 8), torch.zeros(2, 8))}, "item 9"),
-])
-def test_scan_refuses_training_and_carried_state(kwargs, item):
-    """Carried state (streaming, item 9) is refused, in training too; the
-    differentiable scan itself (training) is tests/test_torch_train_models
-    .py's."""
+@pytest.mark.parametrize("kwargs", [
+    {"differentiable": True, "return_state": True},
+    {"return_state": True},
+    {"state": (0.5 * np.ones((2, 8), np.float32),
+               -0.3 * np.ones((2, 8), np.float32))},
+], ids=["train_return_state", "eval_return_state", "eval_state"])
+def test_scan_carried_state_matches_css_tpu(kwargs):
+    """Carried state (streaming), in training and on the eval route (K2's
+    plain version here): hs and the final (h, c) against css_tpu's scan,
+    float32, 1e-6 (see the module docstring); the final c is float32."""
     xw, w_hh = _inputs(2, 3, 8, seed=0)
-    with pytest.raises(NotImplementedError, match=item):
-        lstm_scan(torch.as_tensor(xw), torch.as_tensor(w_hh), 8, **kwargs)
+    state = kwargs.get("state")
+    want = jax_lstm_scan(
+        jnp.asarray(xw), jnp.asarray(w_hh), 8, return_state=True,
+        state=None if state is None else tuple(map(jnp.asarray, state)))
+    got = lstm_scan(torch.as_tensor(xw), torch.as_tensor(w_hh), 8,
+                    differentiable=kwargs.get("differentiable", False),
+                    state=None if state is None else tuple(
+                        map(torch.as_tensor, state)),
+                    return_state=True)
+    hs, (h, c) = got
+    assert c.dtype == torch.float32
+    for g, w in ((hs, want[0]), (h, want[1][0]), (c, want[1][1])):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   atol=1e-6, rtol=1e-6)
