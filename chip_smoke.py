@@ -134,6 +134,26 @@ Phases, each timed on its own line:
            the per-chunk wall time.
      K3, K1 and K2 at the streaming shapes against their plain versions,
      with their times and bounds (the kernels line's ``stream`` entries).
+  9. Parallel (one card: ranks share it over gloo, or one runs alone over
+     NCCL; correctness and overhead, not scaling), each rank a process
+     of the port's own entry points, writing its launch and plain-route
+     counts and its results to files this script reads:
+       (a) DP at world 1 (NCCL) against the same steps under the single
+           strategy, from the flagship's weights, 32 x 4.0 s, float32;
+       (b) DP at world 2, 16 rows a rank, against single on all 32: loss,
+           gradients, BatchNorm statistics, parameters after 3 Adam steps;
+           per-rank BatchNorm statistics, the control, must fail;
+       (c) TP = 2, one step against single, gradients gathered;
+       (d) replica averaging at world 2 against the replicas' own runs;
+       (e) ``python -m css_tpu_torch.parallel.launch --num-processes 2 --
+           --strategy dp --device-mix ...`` (bf16): rank 0 alone writes,
+           bit-equal ranks, K3 once a batch on each rank;
+       (f) ``cli.train_parallel`` with a crashing job, elastic and abort;
+       (g) ``CssPipeline`` with ``sharded: true`` over [cuda:0, cuda:0]
+           on the session, flagship and full-width BLSTM, against the
+           unsharded pipeline; K3 once a shard batch, K1 once, K2 on the
+           BLSTM's shard batches.
+     The PAR_* comments hold the gates.
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and last the result line ``{"ok": true, "device": {...}}``. Progress goes
 to stderr. Any failed check raises, and the exit code is then non-zero;
@@ -145,6 +165,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -364,6 +385,84 @@ HOP_PUSH_RTOL, HOP_PUSH_ATOL = 1e-4, 1e-5
 # returned state, against one launch over the whole sequence: the same
 # float32 recurrence, expected bit for bit; held to LSTM_F32_MAX_ERR
 HOP_CHAIN_CHUNKS = 18
+
+
+# Phase 9, parallel. The script needs one card: ranks that share it
+# run over gloo (NCCL refuses two ranks on one device), so these runs check
+# collectives and numerics and measure overhead, not scaling. The model is
+# the flagship (16 x 256, 4 heads, 1024 units, kernel 33, 257 bins, 2
+# speakers + noise) from its committed weights, with dropout 0 (each rank's
+# rows draw their own dropout, which a single process cannot replay), the
+# recipe's optimiser and objective, float32 with TF32 off, on PAR_STEPS
+# batches of 32 x 4.0 s of the train path's material. From random weights
+# the order of a float32 sum alone moves this model's gradient by more than
+# the gates (on an H100 a world-2 step lay 6.8e-4 rel-L2 from single;
+# (c) prints its witness against single), and Adam turns that noise into
+# steps of up to lr on the parameters whose true gradient is zero (the key
+# bias, the depthwise conv's bias before BatchNorm, the conv module's
+# output shift before the block's LayerNorm). So TP from random weights is
+# held to a witness that sums in TP's order, in (c).
+#   (a) DP at world 1 over NCCL against the same steps under --strategy
+#       single: a world-1 all-reduce is an identity, so loss, gradients and
+#       BatchNorm statistics within WORLD1_RTOL (relative). Step ms: the
+#       median of PAR_TIMED_STEPS more steps, each run in a process of its
+#       own (runner.py's ranks; single spawned as they are).
+#   (b) DP at world 2 (16 rows a rank) against single on all 32: the JAX
+#       package's tolerances (tests/test_parallel.py, tests/test_bn_dp.py,
+#       tests/test_multihost.py): loss PAR_LOSS_RTOL, gradients rel-L2
+#       PAR_GRAD_L2, BatchNorm statistics PAR_STATS_ATOL, parameters after
+#       PAR_STEPS Adam steps PAR_PARAM_RTOL / PAR_PARAM_ATOL; the control,
+#       per-rank BatchNorm statistics, must fail the gradient gate.
+#   (c) TP = 2 (2 heads, 512 FFN units a rank): one step, the gates of (b)
+#       on the gradients gathered to full shape; and from random weights
+#       (TRAIN_SEED), the same gates against a witness, one process
+#       computing each TP layer as the two ranks do and summing their
+#       partial products in TP's order (runner.split_like_tp), with single
+#       against that witness printed beside it.
+#   (d) replica averaging at world 2: two replicas from their own draws
+#       (TRAIN_SEED + j) on their own 16 rows, REPLICA_STEPS steps, each
+#       held to a single-process run on its rows by the gates of (b); the
+#       average over both within REPLICA_ATOL of the mean of the replicas'
+#       own states, over replica 0 alone replica 0's state.
+#   (e) the CLI through the launcher, the recipe's flags at 2 epochs of 2
+#       batches, bf16, device-mixed: finite losses, rank 0 alone writes,
+#       the ranks end bit-equal, K3 once a batch on each rank.
+#   (f) cli.train_parallel, 2 epochs x 2 jobs of a small BLSTM, job 2 of
+#       epoch 1 crashing (--inject-failure 1.2): elastic finishes from the
+#       survivors, abort fails and leaves .error.1.2.
+#   (g) sharded separation over [cuda:0, cuda:0] on the session (73
+#       windows, padded to 74): the flagship and the full-width BLSTM in
+#       float32 against the unsharded pipeline, masks SHARD_MASK_ATOL and
+#       streams SHARD_STREAM_ATOL (tests/test_sharded_inference.py,
+#       tests/test_pipeline_sharded.py).
+PAR_CONF = {"conformer_dropout_rate": 0.0}  # build_model's defaults
+PAR_STEPS, REPLICA_STEPS, PAR_TIMED_STEPS = 3, 2, 10
+WORLD1_RTOL = 1e-6
+PAR_LOSS_RTOL, PAR_GRAD_L2, PAR_STATS_ATOL = 1e-5, 1e-5, 1e-6
+PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-3, 1e-5
+REPLICA_ATOL = 1e-6
+SHARD_MASK_ATOL, SHARD_STREAM_ATOL = 1e-5, 1e-4
+PAR_TIMEOUT_S = 300.0
+PAR_CLI_EPOCHS, PAR_CLI_BATCHES, PAR_CLI_VALID = 2, 2, 1
+PAR_CLI_ARGS = ["--synthetic-data", "--synthetic-rirs", "--batch-size",
+                str(TRAIN_BATCH), "--min-window-size", "4.0",
+                "--max-window-size", "4.0", "--model", "Conformer",
+                "--objective", "MSE", "--optim", "adam", "--lr", "1e-4",
+                "--weight-decay", "1e-2", "--grad-thresh", "5.0",
+                "--warmup", "20000", "--decay", "1e-5",
+                "--mse-noise-weight", "0.3", "--bf16", "--strategy", "dp",
+                "--device-mix", "--num-epochs", str(PAR_CLI_EPOCHS),
+                "--batches-per-epoch", str(PAR_CLI_BATCHES),
+                "--validate-batches", str(PAR_CLI_VALID),
+                "--dist-timeout", str(PAR_TIMEOUT_S)]
+PARALLEL_SEED = 20261022
+DRIVER_ARGS = ["--synthetic-data", "--synthetic-speakers", "4",
+               "--synthetic-utts", "2", "--model", "BLSTM", "--objective",
+               "MSE", "--batch-size", "4", "--batches-per-epoch", "3",
+               "--optim", "adam", "--lr", "1e-3", "--blstm-hdim", "32",
+               "--blstm-num-layers", "1", "--min-window-size", "2",
+               "--max-window-size", "2", "--validate-batches", "1",
+               "--num-workers", "1"]
 
 
 def log(*args):
@@ -1893,6 +1992,402 @@ def train_7ch_path(torch, dev, results, counters, kernels, smi_line):
             "recipe_s": recipe_sec, "card": smi_line}
 
 
+def par_arrays(rec: dict, prefix: str) -> dict:
+    """A runner result's arrays under ``prefix`` (the prefix cut off)."""
+    return {k[len(prefix):]: v for k, v in rec["arrays"].items()
+            if k.startswith(prefix)}
+
+
+def par_rel_l2(got: dict, want: dict) -> float:
+    """|got - want| / |want| over every array of two same-keyed dicts."""
+    if sorted(got) != sorted(want) or not want:
+        raise AssertionError(f"keys differ: {sorted(set(got) ^ set(want))}")
+    num = sum(float(np.sum((got[k].astype(np.float64) - want[k]) ** 2))
+              for k in want)
+    den = sum(float(np.sum(want[k].astype(np.float64) ** 2)) for k in want)
+    return float(np.sqrt(num / den))
+
+
+def par_max_abs(got: dict, want: dict) -> float:
+    if sorted(got) != sorted(want) or not want:
+        raise AssertionError(f"keys differ: {sorted(set(got) ^ set(want))}")
+    return max(float(np.abs(got[k] - want[k]).max()) for k in want)
+
+
+def par_check_ranks(results, label, launches):
+    """Every rank's K3 launches, no plain route, ranks in sync (dp)."""
+    for r in results:
+        want = {"stft_mag": launches, "istft": 0, "lstm_fused": 0}
+        if r["launches"] != want or any(r["plain_routes"].values()):
+            raise AssertionError(
+                f"{label} rank {r['rank']}: launches {r['launches']} "
+                f"(expected {want}), plain routes {r['plain_routes']}")
+        if r.get("in_sync") is False:
+            raise AssertionError(f"{label} rank {r['rank']}: parameters "
+                                 "differ from data rank 0's")
+
+
+def par_params_gate(rec, ref) -> dict:
+    """How far ``rec``'s parameters after the steps lie from ``ref``'s:
+    the largest difference, and the elements outside PAR_PARAM_RTOL /
+    PAR_PARAM_ATOL (the gate: none)."""
+    got, want = par_arrays(rec, "param/"), par_arrays(ref, "param/")
+    outside = sum(int(np.sum(np.abs(got[k] - w)
+                             > PAR_PARAM_ATOL + PAR_PARAM_RTOL * np.abs(w)))
+                  for k, w in want.items())
+    return {"params_max_abs": par_max_abs(got, want),
+            "params_outside_tol": outside}
+
+
+def par_gate(label, ref, rec, steps):
+    """Rank ``rec`` against the single-process ``ref``: losses, step 0's
+    gradients, the BatchNorm statistics after step 0 and (steps > 1) the
+    parameters after the steps, at the JAX package's tolerances; returns
+    the numbers."""
+    loss = max(abs(a - b) / abs(b) for a, b in
+               zip(rec["losses"][:steps], ref["losses"][:steps]))
+    grad = par_rel_l2(par_arrays(rec, "grad/"), par_arrays(ref, "grad/"))
+    stats = par_max_abs(par_arrays(rec, "stats0/"),
+                        par_arrays(ref, "stats0/"))
+    out = {"loss_rel": loss, "grad_rel_l2": grad, "stats_max_abs": stats}
+    ok = (loss <= PAR_LOSS_RTOL and grad <= PAR_GRAD_L2
+          and stats <= PAR_STATS_ATOL)
+    if steps > 1:
+        params = par_params_gate(rec, ref)
+        out.update(params)
+        ok = ok and params["params_outside_tol"] == 0
+    log(f"{label}: {json.dumps(out)} -> {'pass' if ok else 'fail'}")
+    return ok, out
+
+
+def parallel_path(torch, dev, results, counters, mix, smi_line) -> dict:
+    """Phase 9 (see PAR_* above): the strategies through
+    css_tpu_torch.parallel.runner's ranks, the CLI through the launcher,
+    the driver, and sharded separation in this process."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from css_tpu_torch.models import build_model, init_variables
+    from css_tpu_torch.ops import stft_mag_cuda
+    from css_tpu_torch.parallel import runner
+    from css_tpu_torch.trainer.checkpoint import (load_checkpoint,
+                                                  save_checkpoint_dict)
+
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    rec = {"note": "ranks share one card over gloo (world 2) or run alone "
+                   "over NCCL (world 1): correctness and overhead, not "
+                   "scaling", "card": smi_line}
+    try:
+        conf = PAR_CONF
+        model = build_model("Conformer", conf)
+
+        def write_init(seed, name):
+            params, stats = init_variables(model, seed)
+            path = work / name
+            save_checkpoint_dict(str(path), {"params": params,
+                                             "batch_stats": stats})
+            return str(path)
+
+        ckpt = load_checkpoint(CHECKPOINT)
+        init = str(work / "flagship.mdl")
+        save_checkpoint_dict(init, {"params": ckpt["params"],
+                                    "batch_stats": ckpt["batch_stats"]})
+        batches = [train_batch(PARALLEL_SEED + i) for i in range(PAR_STEPS)]
+        runner.save_batches(work / "batches.npz", batches)
+        # K3 at a world-2 rank's shape: its 16 rows of mix and sources
+        half = TRAIN_BATCH // 2
+        x = torch.as_tensor(np.concatenate(
+            [batches[0][k][:half] for k in ("mix", "source1", "source2")]),
+            device=dev)
+        sep = CONFIG["separation"]
+        k3 = k3_record(torch, stft_mag_cuda, x, sep["frame_length"],
+                       sep["frame_shift"], "stft_mag dp rank")
+        for r in results:
+            if r["name"] == "stft_mag":
+                r["dp_rank"] = dict(k3, launches="1 per step on each rank "
+                                    "of a world-2 data-parallel step")
+        del x
+        base = {"strategy": "dp", "world": 1, "device": dev.type,
+                "model": {"name": "Conformer", "conf": conf},
+                "objective": {"name": "MSE",
+                              "conf": {"mse_noise_weight": 0.3}},
+                "trainer": {"optim": "adam", "lr": 1e-4,
+                            "weight_decay": 1e-2, "grad_thresh": 5.0,
+                            "seed": TRAIN_SEED},
+                "init": init, "batches": str(work / "batches.npz"),
+                "steps": PAR_STEPS, "timeout_s": PAR_TIMEOUT_S}
+        timed = {"timed_steps": PAR_TIMED_STEPS}
+
+        def ms(r):
+            return float(np.median(r["timed_ms"]))
+
+        # (a) world 1 over NCCL against single, each in a process of its own
+        single = runner.run(dict(base, strategy="single", spawn=True,
+                                 **timed), work / "single")[0]
+        w1 = runner.run(dict(base, **timed), work / "dp1")[0]
+        if w1["backend"] != ("nccl" if dev.type == "cuda" else "gloo"):
+            raise AssertionError(f"world 1 on a card ran {w1['backend']}")
+        par_check_ranks([w1], "dp world 1", PAR_STEPS)
+        a = {"loss_rel": max(abs(x - y) / abs(y) for x, y in
+                             zip(w1["losses"], single["losses"])),
+             "grad_rel_l2": par_rel_l2(par_arrays(w1, "grad/"),
+                                       par_arrays(single, "grad/")),
+             "stats_max_rel": max(
+                 float(np.abs(v - par_arrays(single, "stats0/")[k]).max()
+                       / max(np.abs(v).max(), 1e-30))
+                 for k, v in par_arrays(w1, "stats0/").items())}
+        log(f"(a) dp world 1 nccl vs single: {json.dumps(a)}")
+        if max(a.values()) > WORLD1_RTOL:
+            raise AssertionError(f"(a) world-1 DP is not single: {a}")
+        rec["a"] = dict(a, step_ms=ms(w1), single_step_ms=ms(single),
+                        timed_steps=PAR_TIMED_STEPS, backend=w1["backend"])
+
+        def by_path(path, ranks):
+            for r in results:
+                r["launches_by_path"][path] = sum(x["launches"][r["name"]]
+                                                  for x in ranks)
+
+        # (b) world 2 over gloo on the one card, and the control
+        w2 = runner.run(dict(base, world=2, **timed), work / "dp2")
+        if [r["backend"] for r in w2] != ["gloo", "gloo"]:
+            raise AssertionError(
+                f"world 2 backends {[r['backend'] for r in w2]}")
+        par_check_ranks(w2, "dp world 2", PAR_STEPS)
+        b = []
+        for r in w2:
+            ok, out = par_gate(f"(b) dp world 2 rank {r['rank']} vs single",
+                               single, r, PAR_STEPS)
+            if not ok:
+                raise AssertionError(f"(b) rank {r['rank']}: {out}")
+            b.append(out)
+        ctrl = runner.run(dict(base, world=2, steps=1, local_bn=True),
+                          work / "ctrl")[0]
+        ctrl_l2 = par_rel_l2(par_arrays(ctrl, "grad/"),
+                             par_arrays(single, "grad/"))
+        log(f"(b) control, per-rank BatchNorm statistics: gradients rel-L2 "
+            f"{ctrl_l2:.3e} (must exceed {PAR_GRAD_L2})")
+        if not ctrl_l2 > PAR_GRAD_L2:
+            raise AssertionError("(b) per-rank BatchNorm passes the "
+                                 f"gradient gate ({ctrl_l2:.3e})")
+        rec["b"] = {"ranks": b, "control_grad_rel_l2": ctrl_l2,
+                    "step_ms": [ms(r) for r in w2]}
+
+        # (c) TP = 2
+        tp = runner.run(dict(base, world=2, tp=2, steps=1), work / "tp")
+        par_check_ranks(tp, "tp 2", 1)
+        c = []
+        for r in tp:
+            ok, out = par_gate(f"(c) tp 2 rank {r['rank']} vs single",
+                               single, r, 1)
+            if not ok:
+                raise AssertionError(f"(c) rank {r['rank']}: {out}")
+            c.append(out)
+        # from random weights, against the witness in TP's order of sums
+        rand = dict(base, init=write_init(TRAIN_SEED, "random.mdl"), steps=1)
+        wit = runner.run(dict(rand, strategy="single", split_like_tp=2),
+                         work / "witness")[0]
+        plain = runner.run(dict(rand, strategy="single"), work / "plain")[0]
+        tp_rand = runner.run(dict(rand, world=2, tp=2), work / "tp_random")
+        par_check_ranks(tp_rand, "tp 2 random", 1)
+        c_rand = []
+        for r in tp_rand:
+            ok, out = par_gate(f"(c) tp 2 rank {r['rank']}, random weights, "
+                               "vs the witness", wit, r, 1)
+            if not ok:
+                raise AssertionError(f"(c) random rank {r['rank']}: {out}")
+            c_rand.append(out)
+        wit_vs_single = {
+            "loss_rel": abs(wit["losses"][0] - plain["losses"][0])
+            / abs(plain["losses"][0]),
+            "grad_rel_l2": par_rel_l2(par_arrays(wit, "grad/"),
+                                      par_arrays(plain, "grad/")),
+            "tp_grad_rel_l2": [par_rel_l2(par_arrays(r, "grad/"),
+                                          par_arrays(plain, "grad/"))
+                               for r in tp_rand]}
+        log(f"(c) random weights, the witness and tp 2 vs single: "
+            f"{json.dumps(wit_vs_single)}")
+        rec["c"] = {"ranks": c, "step_ms": [r["step_ms"][0] for r in tp],
+                    "random_vs_witness": c_rand,
+                    "random_vs_single": wit_vs_single}
+        by_path("tp_train", tp)
+
+        # (d) replica averaging: two replicas on their own rows and draws
+        inits = [write_init(TRAIN_SEED + j, f"init{j}.mdl") for j in range(2)]
+        own = []
+        for j in range(2):
+            rows = [{k: v[j * half:(j + 1) * half] for k, v in bt.items()}
+                    for bt in batches[:REPLICA_STEPS]]
+            runner.save_batches(work / f"rows{j}.npz", rows)
+            own.append(runner.run(dict(
+                base, strategy="single", init=inits[j],
+                batches=str(work / f"rows{j}.npz"), steps=REPLICA_STEPS),
+                work / f"own{j}")[0])
+        ra = runner.run(dict(base, strategy="replica", world=2, init=inits,
+                             steps=REPLICA_STEPS,
+                             averages=[[True, True], [True, False]]),
+                        work / "replica")
+        par_check_ranks(ra, "replica", REPLICA_STEPS)
+        for j, r in enumerate(ra):
+            ok, out = par_gate(f"(d) replica {j}'s own steps vs single",
+                               own[j], r, REPLICA_STEPS)
+            if not ok:
+                raise AssertionError(f"(d) replica {j}: {out}")
+        mine = [par_arrays(r, "param/") for r in ra]
+        mean = {k: (v + mine[1][k]) / 2 for k, v in mine[0].items()}
+        d = {"avg_all_vs_mean": [par_max_abs(par_arrays(r, "avg0/param/"),
+                                             mean) for r in ra],
+             "avg_alive_1_0_vs_replica_0": [
+                 par_max_abs(par_arrays(r, "avg1/param/"), mine[0])
+                 for r in ra]}
+        log(f"(d) replica averaging: {json.dumps(d)}")
+        if max(d["avg_all_vs_mean"] + d["avg_alive_1_0_vs_replica_0"]) \
+                > REPLICA_ATOL:
+            raise AssertionError(f"(d) replica averaging: {d}")
+        rec["d"] = d
+        by_path("replica_train", ra)
+
+        # (e) the CLI through the launcher
+        expdir, report = work / "cli", work / "cli_report"
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "css_tpu_torch.parallel.launch",
+             "--num-processes", "2", "--timeout", str(2 * PAR_TIMEOUT_S),
+             "--", *PAR_CLI_ARGS, "--expdir", str(expdir), "--rank-report",
+             str(report), "--device", dev.type],
+            capture_output=True, text=True, timeout=3 * PAR_TIMEOUT_S)
+        cli_s = time.perf_counter() - t
+        if res.returncode != 0:
+            raise AssertionError(f"(e) launcher rc {res.returncode}:\n"
+                                 f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+        reports = [json.loads((report / f"rank{r}.json").read_text())
+                   for r in range(2)]
+        n_train = PAR_CLI_EPOCHS * PAR_CLI_BATCHES
+        files = sorted(["conf.1.json", "train.1.jsonl"]
+                       + [f"{e + 1}.1.mdl" for e in range(PAR_CLI_EPOCHS)])
+        for r in reports:
+            k3 = n_train + (PAR_CLI_EPOCHS * PAR_CLI_VALID
+                            if r["rank"] == 0 else 0)
+            want = {"stft_mag": k3, "istft": 0, "lstm_fused": 0}
+            if (r["launches"] != want or any(r["plain_routes"].values())
+                    or not np.isfinite(r["epoch_losses"]).all()
+                    or r["in_sync"] is not True
+                    or r["backend"] != "gloo"):
+                raise AssertionError(f"(e) rank {r['rank']}: {r}")
+        if (sorted(reports[0]["written"]) != files or reports[1]["written"]
+                or reports[0]["state_digest"] != reports[1]["state_digest"]):
+            raise AssertionError(f"(e) writes or digests: {reports}")
+        load_checkpoint(str(expdir / f"{PAR_CLI_EPOCHS}.1.mdl"))
+        by_path("dp_train", reports)
+        rec["e"] = {"seconds": cli_s,
+                    "epoch_losses": reports[0]["epoch_losses"],
+                    "launches": [r["launches"] for r in reports]}
+        log(f"(e) cli dp world 2: {json.dumps(rec['e'])}")
+
+        # (f) the driver: elastic, then abort
+        f = {}
+        for mode in ("elastic", "abort"):
+            d_exp = work / f"driver_{mode}"
+            t = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "css_tpu_torch.cli.train_parallel",
+                 "--expdir", str(d_exp), "--num-epochs", "2", "--nj-init",
+                 "2", "--nj-final", "2", "--retry", "1", "--inject-failure",
+                 "1.2", "--on-failure", mode, "--", *DRIVER_ARGS,
+                 "--device", dev.type],
+                capture_output=True, text=True, timeout=2 * PAR_TIMEOUT_S)
+            f[mode] = {"rc": res.returncode,
+                       "seconds": time.perf_counter() - t}
+            sentinel = (d_exp / ".error.1.2").exists()
+            if mode == "elastic":
+                ok = (res.returncode == 0 and sentinel
+                      and (d_exp / "2.mdl").exists()
+                      and load_checkpoint(str(d_exp / "2.mdl"))["epoch"] == 2)
+            else:
+                ok = (res.returncode != 0 and sentinel
+                      and not (d_exp / "1.mdl").exists())
+            if not ok:
+                raise AssertionError(f"(f) driver {mode}: rc "
+                                     f"{res.returncode}, sentinel {sentinel}"
+                                     f"\n{res.stderr[-3000:]}")
+        rec["f"] = f
+        log(f"(f) driver: {json.dumps(f)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def sharded_path(torch, dev, results, counters, mix) -> dict:
+    """Phase 9 (g): sharded separation in this process, launch counts set
+    to 0 just before and read just after each run."""
+    from css_tpu_torch.cli.separate import load_model
+    from css_tpu_torch.executor.pipeline import CssPipeline
+    from css_tpu_torch.executor.windowing import pad_for_windows
+    from css_tpu_torch.models import blstm
+
+    sharded_cfg = dict(CONFIG, separation=dict(CONFIG["separation"],
+                                               sharded=True))
+    shards = [dev, dev]
+    per_shard = -(-main_shapes()["n_windows"] // len(shards))
+    shard_batches = len(shards) * -(-per_shard
+                                    // CONFIG["separation"]["batch_size"])
+    g = {}
+    for name in ("conformer", "blstm"):
+        if name == "conformer":
+            model = load_model(CHECKPOINT)
+            model.compute_dtype = torch.float32
+        else:
+            model = blstm.BLSTM.build_model({})
+            model.load_state_dict(blstm.params_from_jax(
+                blstm.init_params(BLSTM_SEED, {})))
+        plain = CssPipeline(model, CONFIG, device=dev)
+        pipe = CssPipeline(model, sharded_cfg, device=dev,
+                           shard_devices=shards)
+        n_dirs = 2 * len(model.encoders) if name == "blstm" else 0
+        expect = {"stft_mag": shard_batches, "istft": 1,
+                  "lstm_fused": shard_batches * n_dirs}
+        secs = {}
+        for label, p in (("unsharded", plain), ("sharded", pipe)):
+            for _ in range(2):  # cold, then warm
+                for c in counters:
+                    c.launches = c.plain_routes = 0
+                t = time.perf_counter()
+                outs = p.process(mix)
+                secs[label] = time.perf_counter() - t
+                counts = {c.__name__: c.launches for c in counters}
+                routes = {c.__name__: c.plain_routes for c in counters}
+            if label == "sharded":
+                if counts != expect or any(routes.values()):
+                    raise AssertionError(
+                        f"(g) sharded {name}: launches {counts} (expected "
+                        f"{expect}), plain routes {routes}")
+                for r in results:
+                    r["launches_by_path"][f"sharded_{name}"] = \
+                        counts[r["name"]]
+                sharded_outs = outs
+            else:
+                plain_outs = outs
+        wav = pad_for_windows(torch.as_tensor(mix, device=dev),
+                              plain.separator.win, plain.separator.hop)
+        with torch.no_grad():
+            m_plain, _ = plain.separator.separate(wav)
+            _, m_shard, _ = pipe.sharded.separate(wav)
+        mask_err = float((m_shard - m_plain).abs().max())
+        stream_err = max(float(np.abs(a - b).max())
+                         for a, b in zip(sharded_outs, plain_outs))
+        g[name] = {"mask_max_abs": mask_err, "stream_max_abs": stream_err,
+                   "sharded_s": secs["sharded"],
+                   "unsharded_s": secs["unsharded"], "launches": counts}
+        log(f"(g) sharded {name}: {json.dumps(g[name])}")
+        if mask_err > SHARD_MASK_ATOL or stream_err > SHARD_STREAM_ATOL:
+            raise AssertionError(f"(g) sharded {name}: masks {mask_err:.3e} "
+                                 f"(atol {SHARD_MASK_ATOL}), streams "
+                                 f"{stream_err:.3e} (atol "
+                                 f"{SHARD_STREAM_ATOL})")
+        del model, plain, pipe
+    return g
+
 def main() -> int:
     import torch
 
@@ -2465,6 +2960,24 @@ def main() -> int:
           f"median {1e3 * rec8['hop_conformer']['chunk_s_median']:.2f} ms; "
           f"{smi_line}", flush=True)
     phase("streaming", t0)
+
+    # --------------------------------------------------------- 9. parallel
+    t0 = time.perf_counter()
+    rec9 = parallel_path(torch, dev, results, counters, mix, smi_line)
+    rec9["g"] = sharded_path(torch, dev, results, counters, mix)
+    print("parallel " + json.dumps(rec9), flush=True)
+    print(f"main_path parallel (ranks share one card: correctness and "
+          f"overhead, not scaling): dp step world 1 (nccl) "
+          f"{rec9['a']['step_ms']:.1f} ms vs single "
+          f"{rec9['a']['single_step_ms']:.1f} ms; world 2 (gloo) "
+          f"{max(rec9['b']['step_ms']):.1f} ms; tp 2 step "
+          f"{max(rec9['c']['step_ms']):.1f} ms; sharded over 2 shards "
+          f"conformer {rec9['g']['conformer']['sharded_s']:.3f} s vs "
+          f"{rec9['g']['conformer']['unsharded_s']:.3f} s unsharded, blstm "
+          f"{rec9['g']['blstm']['sharded_s']:.3f} s vs "
+          f"{rec9['g']['blstm']['unsharded_s']:.3f} s; {smi_line}",
+          flush=True)
+    phase("parallel", t0)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi_line, flush=True)

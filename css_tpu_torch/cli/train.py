@@ -1,4 +1,4 @@
-"""Training CLI (port of ``css_tpu/cli/train.py``, strategy ``single``).
+"""Training CLI (port of ``css_tpu/cli/train.py``).
 
     python -m css_tpu_torch.cli.train --expdir exp/run --synthetic-data \\
         --model Conformer --objective MSE --optim adam --lr 1e-4 ...
@@ -11,7 +11,19 @@ garbage-collected by --keep-every/--keep-last), ``best.<job>.mdl`` with
 --init warm-starts the params. Training runs on ``--device`` (default
 cuda; it raises without a card and never falls back to the CPU). The JAX
 package's --platform, --prng-impl and --debug-nans have no counterpart
-here. Options whose ROADMAP.md item is still open raise and name it.
+here.
+
+--strategy dp (with --tp N, the Conformer's tensor parallelism) and
+--strategy replica_avg (--num-replicas, the --nj-init ramp of alive
+replicas) run one process per card (``parallel/``): in one process a
+world-1 process group, with --multihost one rank of --num-processes
+joined at --coordinator (``python -m css_tpu_torch.parallel.launch
+--num-processes N -- ...`` starts them). Each process draws its own
+mixtures (seed + 7919 * its data rank) of --batch-size / processes rows,
+window buckets in lockstep (a shared window seed), with one producer
+thread; rank 0 alone writes files and runs validation and the probe
+(every rank under --tp > 1, whose forward needs them all). --rank-report
+DIR makes each rank write what it did to DIR/rank<r>.json.
 
 --spatialize-channels 7 trains the 7ch (IPD-featured) model on mixtures
 rendered on the 7-mic array (``data/spatial.SpatialMixer``, sensor noise
@@ -45,6 +57,10 @@ from css_tpu_torch.data.spatial import SpatialMixer
 from css_tpu_torch.device import resolve_device
 from css_tpu_torch.models import MODELS, from_jax, init_variables
 from css_tpu_torch.objectives import OBJECTIVES
+from css_tpu_torch.ops import istft_cuda, lstm_cuda, stft_mag_cuda
+from css_tpu_torch.parallel import launch, mesh as mesh_mod
+from css_tpu_torch.parallel.dp import (SEED_STRIDE, DataParallel,
+                                       ReplicaAveraging, state_digest)
 from css_tpu_torch.trainer import checkpoint
 from css_tpu_torch.trainer.loop import Trainer
 from css_tpu_torch.trainer.lr_schedule import LRSchedule
@@ -124,20 +140,10 @@ def _dataset_args(parser):
     parser.add_argument("--hard-pair-df0", type=float, default=80.0)
 
 
-# flags of the JAX package's CLI whose feature waits for a ROADMAP.md item:
-# (flag, is it set?, the item)
-NOT_PORTED = [
-    ("--strategy dp|replica_avg", lambda a: a.strategy != "single",
-     "Queue 1 item 10"),
-    ("--tp > 1", lambda a: a.tp > 1, "Queue 1 item 10"),
-    ("--multihost", lambda a: a.multihost, "Queue 1 item 10"),
-]
-
-
 def parse_arguments(argv=None):
     parser = argparse.ArgumentParser(
         description="Train a separation model on the card (the port of "
-                    "css_tpu.cli.train, strategy single).")
+                    "css_tpu.cli.train).")
     parser.add_argument("--train-manifest", type=str, default=None)
     parser.add_argument("--dev-manifest", type=str, default=None)
     parser.add_argument("--synthetic-data", action="store_true",
@@ -190,17 +196,34 @@ def parse_arguments(argv=None):
                              "results")
     parser.add_argument("--strategy", default="single",
                         choices=["single", "dp", "replica_avg"],
-                        help="dp and replica_avg: ROADMAP.md Queue 1 item "
-                             "10, not ported (raise)")
-    parser.add_argument("--tp", type=int, default=1)
-    parser.add_argument("--num-replicas", type=int, default=None)
-    parser.add_argument("--nj-init", type=int, default=None)
+                        help="dp: synchronous data parallelism over the "
+                             "processes (with --tp); replica_avg: one "
+                             "independent replica per process, averaged "
+                             "every epoch")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree (dp strategy)")
+    parser.add_argument("--num-replicas", type=int, default=None,
+                        help="replica_avg strategy replica count")
+    parser.add_argument("--nj-init", type=int, default=None,
+                        help="replica_avg: ramp the alive replicas from "
+                             "nj_init to num-replicas over the run")
     parser.add_argument("--keep-every", type=int, default=20)
     parser.add_argument("--keep-last", type=int, default=2)
-    parser.add_argument("--multihost", action="store_true")
-    parser.add_argument("--coordinator", default=None)
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a process group of --num-processes at "
+                             "--coordinator as --process-id")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of the process group's rendezvous")
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--dist-timeout", type=float,
+                        default=launch.DEFAULT_TIMEOUT_S,
+                        help="seconds a collective may wait before it "
+                             "fails")
+    parser.add_argument("--rank-report", default=None,
+                        help="directory where each rank writes "
+                             "rank<r>.json: its kernel launches, the "
+                             "files it wrote, a digest of its parameters")
     parser.add_argument("--profile-dir", default=None,
                         help="write a torch.profiler trace of epoch 1 here")
     parser.add_argument("--keep-best", action="store_true",
@@ -278,16 +301,34 @@ def _simple(conf):
 
 
 def _check_flags(args):
-    """The JAX package's incompatibility errors."""
+    """The JAX package's incompatibility errors, before any process group
+    is joined."""
+    n_proc = (args.num_processes or 1) if args.multihost else 1
+    if (n_proc > 1 and args.strategy in ("dp", "replica_avg")
+            and args.batch_size % n_proc):
+        raise SystemExit(f"--batch-size {args.batch_size} must be "
+                         f"divisible by {n_proc} processes")
     if args.spatialize_channels:
         if args.synthetic_rirs:
             raise SystemExit("--spatialize-channels is incompatible with "
                              "--synthetic-rirs (mono-mixture reverb has no "
                              "spatial image; sensor noise is added per "
                              "channel instead)")
+        if args.device_mix and n_proc > 1:
+            raise SystemExit("--spatialize-channels with --device-mix is "
+                             "single-process for now")
         if args.model == "ConvTasNet":
             raise SystemExit("--spatialize-channels needs a mask model "
                              "(Conformer/BLSTM)")
+    if args.device_mix and n_proc > 1 and args.strategy == "single":
+        raise SystemExit("--device-mix with multiple processes requires "
+                         "--strategy dp or replica_avg")
+    if args.strategy == "dp" and args.tp > 1:
+        if args.model != "Conformer":
+            raise SystemExit("--tp>1 currently supports Conformer only")
+        if args.average_probe_top > 0:
+            raise SystemExit("--average-probe-top with --tp > 1 is not "
+                             "supported: rank 0 alone probes the average")
     if args.average_probe_top > 0 and args.probe_sessions <= 0:
         raise SystemExit("--average-probe-top requires --probe-sessions > 0")
 
@@ -315,14 +356,41 @@ def build_probe(args, conf, train_ipd, device) -> HeldOutProbe:
                         stratify_f0=args.probe_stratify_f0, device=device)
 
 
+def _join(args):
+    """(device, rank, processes): --multihost joins its process group, a
+    one-process dp/replica_avg run opens a world-1 group (the same code
+    as N ranks), --strategy single opens none."""
+    if args.multihost:
+        device = launch.initialize(args.coordinator, args.num_processes,
+                                   args.process_id, args.device,
+                                   args.dist_timeout)
+    elif args.strategy != "single":
+        device = launch.initialize(f"localhost:{launch.free_port()}", 1, 0,
+                                   args.device, args.dist_timeout)
+    else:
+        device = resolve_device(args.device)
+    return (device, *mesh_mod.world())
+
+
+KERNELS = (stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused)
+
+
 def main(argv=None):
     args = parse_arguments(argv)
-    for flag, is_set, item in NOT_PORTED:
-        if is_set(args):
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP.md {item}")
     _check_flags(args)
-    device = resolve_device(args.device)
+    device, rank, n_proc = _join(args)
+    try:
+        return _train(args, device, rank, n_proc)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device, rank: int, n_proc: int):
+    """Everything after the process group is joined: rank 0 owns the
+    files."""
+    is_lead = rank == 0
+    written = []  # files this rank wrote (--rank-report)
     expdir = Path(args.expdir)
     expdir.mkdir(parents=True, exist_ok=True)
     np.random.seed(args.seed)
@@ -334,11 +402,32 @@ def main(argv=None):
     else:
         conf = vars(args).copy()
         conf["epoch"] = 0
-        with open(conf_path, "w") as fh:
-            json.dump(conf, fh, indent=4, default=str)
+        if is_lead:
+            with open(conf_path, "w") as fh:
+                json.dump(conf, fh, indent=4, default=str)
+            written.append(conf_path.name)
 
+    mesh = None
+    if args.strategy == "dp":
+        mesh = mesh_mod.make_mesh(model=args.tp)
+    elif args.strategy == "replica_avg":
+        mesh = mesh_mod.make_mesh()
+    # the rows a process draws: its data rank's share of the global batch
+    data_rank, data_size = ((mesh.data_rank, mesh.data) if mesh is not None
+                            else (0, 1))
     corpus, dev_corpus = build_corpus(args)
     conf["seed"] = args.seed + 1000 * args.job
+    if n_proc > 1:
+        # disjoint mixture streams per data rank (the ranks of one model
+        # group draw alike: they hold the same rows)
+        conf["seed"] += SEED_STRIDE * data_rank
+        if args.strategy in ("dp", "replica_avg"):
+            conf["batch_size"] = args.batch_size // data_size
+            if args.num_workers > 1:
+                log.warning("multi-process strategies need lockstep window "
+                            "buckets across processes; forcing "
+                            "--num-workers 1")
+                args.num_workers = 1
     if args.synthetic_rirs:
         conf["rir_pool"] = synthetic_rir_pool()
         conf["noise_pool"] = synthetic_noise_pool()
@@ -351,16 +440,20 @@ def main(argv=None):
 
     dmix = dev_dmix = None
     if args.device_mix:
-        # the pools of the training and the validation material, on the
-        # card; the spatial draws of device-mixed recipes come from these
+        # the pools of the training and the validation material, on this
+        # rank's card; the spatial draws of device-mixed recipes come from
+        # these
         dmix = DeviceMixer(spatial(MixtureSynthesizer.build_dataset(
             corpus, conf), conf["seed"] + 31), device=device)
         if dev_corpus is not None:
             dev_dmix = DeviceMixer(spatial(MixtureSynthesizer.build_dataset(
                 dev_corpus, _pin_dev_windows(conf)), 12376), device=device)
-    if args.num_workers > 1 and conf.get("window_seed") is None:
-        # producer threads must draw the same window-bucket sequence; the
-        # offset keeps this stream apart from every content seed
+    if ((args.num_workers > 1
+         or (n_proc > 1 and args.strategy in ("dp", "replica_avg")))
+            and conf.get("window_seed") is None):
+        # producer threads and cooperating processes must draw the same
+        # window-bucket sequence; the offset keeps this stream apart from
+        # every content seed
         conf["window_seed"] = args.seed + 1000 * args.job + 104729
 
     def make_train_stream(i=0):
@@ -396,8 +489,17 @@ def main(argv=None):
         # [ch0 magnitude, M IPD pairs]: the 7ch separator's feature layout
         conf["idim"] = int(conf.get("num_bins", 257)) * (
             1 + len(train_ipd.split(";")))
-    model = MODELS[args.model].build_model(conf)
-    model.load_state_dict(from_jax(model, *init_variables(model, args.seed)))
+    tp = args.tp if args.strategy == "dp" else 1
+    model = (MODELS[args.model].build_model(conf, tp_group=mesh.model_group)
+             if tp > 1 else MODELS[args.model].build_model(conf))
+    # every replica of replica_avg starts from its own draw; every rank of
+    # dp from the same one
+    init_seed = args.seed + (SEED_STRIDE * rank
+                             if args.strategy == "replica_avg" else 0)
+    # drawn on the full model (a TP shard's shapes are not the model's)
+    whole = MODELS[args.model].build_model(conf) if tp > 1 else model
+    full = from_jax(whole, *init_variables(whole, init_seed))
+    del whole
     objective = OBJECTIVES[args.objective].build_objective(conf)
     trainer = Trainer(model, objective, LRSchedule.from_conf(conf),
                       optim=args.optim, weight_decay=args.weight_decay,
@@ -405,11 +507,25 @@ def main(argv=None):
                       input_domain=("time" if args.model == "ConvTasNet"
                                     else "stft"),
                       device=device, seed=args.seed, ipd_index=train_ipd)
+    strategy = None
+    if args.strategy == "dp":
+        strategy = DataParallel(trainer, mesh, tp_spec=(
+            mesh_mod.conformer_tp_spec(full) if tp > 1 else None))
+        strategy.load_full(full)
+    else:
+        model.load_state_dict(full)
+        if args.strategy == "replica_avg":
+            strategy = ReplicaAveraging(trainer, mesh,
+                                        num_replicas=args.num_replicas)
+    # rank 0 owns the files and the checks; under TP every rank runs the
+    # forward of validation and the probe, and gathers the state
+    evaluates = is_lead or tp > 1
     probe = (build_probe(args, conf, train_ipd, device)
-             if args.probe_sessions > 0 else None)
-    n_params = sum(p.numel() for p in model.parameters())
-    log.info("Training %s with %d parameters (single strategy on %s)",
-             args.model, n_params, torch.cuda.get_device_name(device)
+             if args.probe_sessions > 0 and evaluates else None)
+    n_params = sum(int(np.prod(v.shape)) for v in full.values())
+    log.info("Training %s with %d parameters (%s strategy, rank %d of %d "
+             "on %s)", args.model, n_params, args.strategy, rank, n_proc,
+             torch.cuda.get_device_name(device)
              if device.type == "cuda" else "cpu")
 
     start_epoch = 0
@@ -427,24 +543,35 @@ def main(argv=None):
         log.info("Warm-started from %s (replace_output=%s)", args.init,
                  args.replace_output)
 
-    metrics_log = MetricsLogger(expdir / f"train.{args.job}.jsonl",
-                                echo_every=50)
+    metrics_log = None
+    if is_lead:
+        metrics_log = MetricsLogger(expdir / f"train.{args.job}.jsonl",
+                                    echo_every=50)
+        written.append(f"train.{args.job}.jsonl")
     best_val = float("inf")
     best_probe = float("-inf")
     probe_top = []  # [(probe SI-SNRi, epoch, path)], the best N epochs
+    epoch_losses = []
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and is_lead:
         from torch.profiler import ProfilerActivity, profile
 
         profiler = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA])
         profiler.start()
+    for k in KERNELS:
+        k.launches = k.plain_routes = 0
     for e in range(start_epoch, start_epoch + args.num_epochs):
         avg_loss = trainer.train_one_epoch(dataset, args.batches_per_epoch,
                                            metrics_log, dmix=dmix)
+        if args.strategy == "replica_avg":
+            alive = _alive(args, strategy.num_replicas, e - start_epoch)
+            strategy.average(alive)
+            avg_loss = _alive_mean(avg_loss, alive, strategy)
+        epoch_losses.append(avg_loss)
         t_val = _time.perf_counter()
         val = None
-        if dev_dataset is not None:
+        if dev_dataset is not None and evaluates:
             val = trainer.validate(dev_dataset,
                                    num_batches=args.validate_batches,
                                    dmix=dev_dmix)
@@ -458,23 +585,30 @@ def main(argv=None):
             probe_val = probe(trainer.model)
             log.info("Epoch %d :: held-out probe SI-SNRi %+.3f dB",
                      e + 1, probe_val)
-            metrics_log({"epoch": e + 1,
-                         "probe_si_snri_db": float(probe_val)})
+            if metrics_log is not None:
+                metrics_log({"epoch": e + 1,
+                             "probe_si_snri_db": float(probe_val)})
         selection_loss = float(val if val is not None else avg_loss)
-        if (args.average_probe_top > 0 and probe_val is not None
+        # the full state: a collective under TP (and replica 0's a
+        # broadcast), so every rank takes it
+        if args.strategy == "replica_avg":
+            state = strategy.replica_state(0)
+        else:
+            state = trainer.state() if evaluates else None
+        if (args.average_probe_top > 0 and is_lead and probe_val is not None
                 and np.isfinite(probe_val)):
             if (len(probe_top) < args.average_probe_top
                     or probe_val > probe_top[-1][0]):
                 p = expdir / f"ptop.{e + 1}.{args.job}.mdl"
                 checkpoint.save_checkpoint(
-                    p, trainer.state(), epoch=e + 1, loss=selection_loss,
+                    p, state, epoch=e + 1, loss=selection_loss,
                     conf=_simple(conf),
                     extra={"probe_si_snri_db": float(probe_val)})
                 probe_top.append((float(probe_val), e + 1, p))
                 probe_top.sort(key=lambda t: -t[0])
                 while len(probe_top) > args.average_probe_top:
                     probe_top.pop()[2].unlink(missing_ok=True)
-        if args.keep_best:
+        if args.keep_best and is_lead:
             # the probe selects where it runs (validation MSE picks the
             # wrong checkpoint, BASELINE.md); else the validation loss
             improved = False
@@ -491,10 +625,11 @@ def main(argv=None):
                          val, e + 1)
             if improved:
                 checkpoint.save_checkpoint(
-                    expdir / f"best.{args.job}.mdl", trainer.state(),
+                    expdir / f"best.{args.job}.mdl", state,
                     epoch=e + 1, loss=selection_loss, conf=_simple(conf),
                     extra=({"probe_si_snri_db": float(probe_val)}
                            if probe_val is not None else None))
+                written.append(f"best.{args.job}.mdl")
         if profiler is not None:  # exactly one epoch
             profiler.stop()
             Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
@@ -502,11 +637,12 @@ def main(argv=None):
                 str(Path(args.profile_dir) / "trace.json"))
             profiler = None
             log.info("Profiler trace written to %s", args.profile_dir)
-        if not np.isnan(avg_loss):  # NaN epochs are not checkpointed
+        if is_lead and not np.isnan(avg_loss):  # NaN epochs: no checkpoint
             t_save = _time.perf_counter()
             checkpoint.save_checkpoint(
-                expdir / f"{e + 1}.{args.job}.mdl", trainer.state(),
+                expdir / f"{e + 1}.{args.job}.mdl", state,
                 epoch=e + 1, loss=avg_loss, conf=_simple(conf))
+            written.append(f"{e + 1}.{args.job}.mdl")
             checkpoint.gc_checkpoints(expdir, keep_every=args.keep_every,
                                       keep_last=args.keep_last, job=args.job)
             log.info("Checkpoint %d.%d saved (%.1fs)", e + 1, args.job,
@@ -514,11 +650,54 @@ def main(argv=None):
     if args.average_probe_top > 0 and probe_top:
         average_probe_top(trainer, probe, probe_top, expdir, args.job,
                           metrics_log)
+        written.append(f"avgtop.{args.job}.mdl")
+    in_sync = strategy.in_sync() if isinstance(strategy, DataParallel) \
+        else None
+    if in_sync is False:
+        log.warning("rank %d: parameters differ from data rank 0's", rank)
+    if args.rank_report:
+        report = Path(args.rank_report)
+        report.mkdir(parents=True, exist_ok=True)
+        (report / f"rank{rank}.json").write_text(json.dumps({
+            "rank": rank, "processes": n_proc, "device": str(device),
+            "backend": (torch.distributed.get_backend()
+                        if torch.distributed.is_initialized() else None),
+            "strategy": args.strategy, "epoch_losses": epoch_losses,
+            "launches": {k.__name__: k.launches for k in KERNELS},
+            "plain_routes": {k.__name__: k.plain_routes for k in KERNELS},
+            "written": written, "state_digest": state_digest(trainer),
+            "in_sync": in_sync}))
     if isinstance(dataset, PrefetchLoader):
         dataset.close()
-    metrics_log.close()
+    if metrics_log is not None:
+        metrics_log.close()
     log.info("Done.")
     return trainer
+
+
+def _alive(args, replicas: int, done_epochs: int) -> np.ndarray:
+    """The alive replicas of an epoch: all, or with --nj-init the linear
+    ramp from nj_init to every replica over the run."""
+    nj = replicas
+    if args.nj_init:
+        frac = (done_epochs + 1) / max(args.num_epochs, 1)
+        nj = min(replicas, max(args.nj_init, int(
+            args.nj_init + frac * (replicas - args.nj_init))))
+    alive = np.zeros(replicas, bool)
+    alive[:nj] = True
+    return alive
+
+
+def _alive_mean(loss: float, alive: np.ndarray,
+                strategy: ReplicaAveraging) -> float:
+    """The mean epoch loss over the alive replicas."""
+    if strategy.mesh.world == 1:
+        return loss
+    j = strategy.replica
+    w = float(alive[j]) if j is not None else 0.0
+    t = torch.tensor([w * loss], device=strategy.trainer.device)
+    torch.distributed.all_reduce(t)
+    return float(t) / float(alive.sum())
 
 
 def average_probe_top(trainer, probe, probe_top, expdir: Path, job: int,

@@ -81,7 +81,7 @@ class DeviceMixer:
         utts = [u.load() for u in mixer.corpus.utterances]
         flat, self._utt_start, self._utt_len = _flatten_pool(
             utts, self.max_win)
-        self.host_pools: Dict[str, np.ndarray] = {"utt_flat": flat}
+        self._host_pools: Dict[str, np.ndarray] = {"utt_flat": flat}
         self.rir_norm = True
         self._noise_start = None
         for tr in mixer.transforms:
@@ -90,7 +90,7 @@ class DeviceMixer:
                 mat = np.zeros((len(tr.rir_pool), lr), np.float32)
                 for i, r in enumerate(tr.rir_pool):
                     mat[i, : len(r)] = r
-                self.host_pools["rir_mat"] = mat
+                self._host_pools["rir_mat"] = mat
                 self.rir_norm = bool(tr.normalize_output)
             elif isinstance(tr, NoiseMix):
                 # short cuts tiled to >= max_win, so that entry[:win] is the
@@ -101,20 +101,28 @@ class DeviceMixer:
                         nz = np.tile(nz, -(-self.max_win // len(nz)))
                     tiled.append(np.asarray(nz, np.float32))
                 nflat, self._noise_start, _ = _flatten_pool(tiled, 0)
-                self.host_pools["noise_flat"] = nflat
+                self._host_pools["noise_flat"] = nflat
+        if self.spatial is not None:
+            self._host_pools["mic_off"] = np.array(MIC_OFFSETS[1:],
+                                                   np.float32)
         self.sr = mixer.sr
         self.noise_level = (float(self.spatial.noise_level)
                             if self.spatial is not None else 0.0)
         self._device_pools = None
+
+    @property
+    def host_pools(self) -> Dict[str, np.ndarray]:
+        """The pools as numpy arrays (port of ``css_tpu/data/
+        device_mixer.py:117``). Under a multi-process strategy every rank
+        builds its own DeviceMixer on its own card from its own copy of
+        the corpus, so each materialises its rows from local pools."""
+        return self._host_pools
 
     def device_pools(self) -> Dict[str, torch.Tensor]:
         """The pools as tensors on the device, copied once."""
         if self._device_pools is None:
             self._device_pools = {k: torch.as_tensor(v, device=self.device)
                                   for k, v in self.host_pools.items()}
-            if self.spatial is not None:
-                self._device_pools["mic_off"] = torch.tensor(
-                    MIC_OFFSETS[1:], dtype=torch.float32, device=self.device)
         return self._device_pools
 
     def materialize(self, batch) -> Dict[str, torch.Tensor]:

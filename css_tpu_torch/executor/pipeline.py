@@ -6,13 +6,16 @@ host, configured from the reference YAML schema ({separation, stitching,
 beamforming}, ``configs/infer_1ch.yaml`` and ``configs/infer_7ch.yaml``)
 with the reference's defaults (a config without ``beamforming.type``
 runs Souden MVDR). The recording goes to ``device`` once; the separated
-streams come back to the host as numpy.
+streams come back to the host as numpy. ``separation.sharded: true``
+splits the windows of a recording over ``shard_devices`` (default: every
+visible card; ``executor/sharded.py``), stitches them on the first, and
+resynthesises there as the default path does.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,22 +25,22 @@ from css_tpu_torch.device import resolve_device
 from css_tpu_torch.executor.beamformer import Beamformer
 from css_tpu_torch.executor.reanchor import reanchor_streams
 from css_tpu_torch.executor.separator import Separator
+from css_tpu_torch.executor.sharded import ShardedSeparation
 from css_tpu_torch.executor.stitcher import Stitcher
 from css_tpu_torch.executor.windowing import pad_for_windows
 
 
 class CssPipeline:
     def __init__(self, model: torch.nn.Module, config: Dict, sr: int = 16000,
-                 device: Union[str, torch.device] = "cuda"):
-        """``model`` is moved to ``device`` and put in eval mode."""
+                 device: Union[str, torch.device] = "cuda",
+                 shard_devices: Optional[Sequence] = None):
+        """``model`` is moved to ``device`` and put in eval mode;
+        ``shard_devices`` are sharded separation's (its first should be
+        ``device``)."""
         self.device = resolve_device(device)
         sep = config.get("separation", {})
         sti = config.get("stitching", {})
         bf = config.get("beamforming", {})
-        if sep.get("sharded"):
-            raise NotImplementedError(
-                "sharded separation is not ported yet: ROADMAP.md Queue 1 "
-                "item 10")
         self.sr = int(config.get("sampling_rate", sr))
         self.num_spk = int(sep.get("num_spk", getattr(model, "num_spk", 2)))
         self.model = model.to(self.device).eval()
@@ -63,6 +66,20 @@ class CssPipeline:
             num_spk=self.num_spk,
             device=self.device,
         )
+        self.sharded = None
+        if sep.get("sharded"):
+            self.sharded = ShardedSeparation(
+                self.model,
+                shard_devices if shard_devices is not None else (
+                    None if self.device.type == "cuda" else [self.device]),
+                sr=self.sr, eval_win=float(sep.get("eval_win", 2.4)),
+                eval_hop=float(sep.get("eval_hop", 0.8)),
+                frame_len=int(sep.get("frame_length", 512)),
+                frame_hop=int(sep.get("frame_shift", 256)),
+                ipd_index=sep.get("ipd"),
+                wta_floor=float(bf.get("wta_thresh", 1e-4)),
+                num_spk=self.num_spk,
+                batch_size=int(sep.get("batch_size", 32)))
         # session-level stream-identity re-anchoring on the host streams
         # (executor/reanchor.py)
         self.reanchor = bool(sti.get("reanchor", False))
@@ -97,8 +114,12 @@ class CssPipeline:
         wav = torch.as_tensor(wav, device=self.device)
         total = wav.shape[-1]
         wav = pad_for_windows(wav, self.separator.win, self.separator.hop)
-        masks, mags = self.separator.separate(wav)
-        stitched = self.stitcher(masks, mags)
+        if self.sharded is not None:
+            stitched = [s.to(self.device)
+                        for s in self.sharded.separate(wav)[0]]
+        else:
+            masks, mags = self.separator.separate(wav)
+            stitched = self.stitcher(masks, mags)
         outs = self.beamformer.continuous_process(wav, stitched)
         outs = [o[:total].cpu().numpy() for o in outs]
         if self.reanchor:

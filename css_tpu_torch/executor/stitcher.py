@@ -60,10 +60,12 @@ class Stitcher:
         costs = self._margin_costs(e)
         return self._perm_table(e.device)[torch.argmin(costs, dim=-1)]
 
-    def get_connect(self, perms: torch.Tensor, masks: torch.Tensor
-                    ) -> Tuple[torch.Tensor, ...]:
+    def get_connect(self, perms: torch.Tensor, masks: torch.Tensor,
+                    valid: torch.Tensor = None) -> Tuple[torch.Tensor, ...]:
         """Composition scan + WTA + overlap-average -> K+1 stitched
-        (T_total, F) masks (speaker streams, then noise)."""
+        (T_total, F) masks (speaker streams, then noise). ``valid`` (B,)
+        bool marks the real windows: padded ones (sharded separation's)
+        add neither mask mass nor coverage count."""
         k = self.num_spk
         b, t, f, _ = masks.shape
         # m_n[s] = local mask index of global stream s at window n; the
@@ -82,8 +84,13 @@ class Stitcher:
         # winner-take-all across streams per TF bin
         m_max = m.amax(dim=-1, keepdim=True)
         m = torch.where(m == m_max, m, torch.full_like(m, self.wta_floor))
+        ones = m.new_ones((b, t))
+        if valid is not None:
+            v = valid.to(m.dtype)
+            m = m * v[:, None, None, None]
+            ones = ones * v[:, None]
         summed = overlap_add(m.permute(2, 3, 0, 1), self.hop_frames)  # (F,S,Tt)
-        count = overlap_add(m.new_ones((b, t)), self.hop_frames)
+        count = overlap_add(ones, self.hop_frames)
         avg = (summed / torch.clamp(count, min=1.0)).permute(2, 0, 1)
         return tuple(avg[..., s] for s in range(avg.shape[-1]))
 

@@ -65,7 +65,7 @@ def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     params: Dict = {}
     stats: Dict = {}
     for key, t in state_dict.items():
-        a = t.detach().float().cpu().numpy()
+        a = t.detach().float().cpu().numpy().copy()  # never a view of t
         path = _jax_path(key)
         tree = params
         if path[-1] in ("running_mean", "running_var"):
@@ -83,12 +83,29 @@ def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     return params, stats
 
 
-def from_jax(model, params: Dict, batch_stats: Dict = None
+def from_jax(model, params: Dict, batch_stats: Dict = None,
+             replica: int = None, tp_shard: Tuple[int, int] = None
              ) -> Dict[str, torch.Tensor]:
     """Nested JAX-layout (params, batch_stats) -> ``model``'s state_dict,
-    through the converter of the model's class."""
+    through the converter of the model's class. ``replica=j`` takes
+    replica j of a stacked replica tree (the JAX package's
+    ``ReplicaAveraging`` state: a leading replica axis on every leaf);
+    ``tp_shard=(index, parts)`` returns tensor-parallel shard ``index`` of
+    ``parts`` (``parallel.mesh.shard_params`` under ``conformer_tp_spec``;
+    ``parallel.mesh.gather_params`` is the way back)."""
+    if replica is not None:
+        def pick(tree):
+            return {k: (pick(v) if isinstance(v, dict)
+                        else np.asarray(v)[replica]) for k, v in tree.items()}
+
+        params, batch_stats = pick(params), pick(batch_stats or {})
     name = next(n for n, cls in MODELS.items() if isinstance(model, cls))
-    return CONVERTERS[name]({"params": params, "batch_stats": batch_stats})
+    sd = CONVERTERS[name]({"params": params, "batch_stats": batch_stats})
+    if tp_shard is not None:
+        from css_tpu_torch.parallel.mesh import conformer_tp_spec, shard_params
+
+        sd = shard_params(sd, conformer_tp_spec(sd), *tp_shard)
+    return sd
 
 
 def init_variables(model, seed: int) -> Tuple[Dict, Dict]:

@@ -35,6 +35,14 @@ into it. ``stream_init`` / ``stream`` carry the running-MVN statistics and
 each block's rolled KV cache of ``left_context`` frames (with flags for
 the slots filled so far) and conv tail of ``kernel_size - 1`` frames:
 chained chunks give the causal offline forward's masks.
+
+Parallel training (``parallel/dp.py``): ``set_batchnorm_group`` makes
+every BatchNorm take its training statistics over the global batch of a
+data group, and ``tp_group=`` builds the tensor-parallel shard of the
+model, the JAX package's ``conformer_tp_spec`` layout: w1 and Q/K/V split
+on their outputs (the attention by heads), w2 and linear_out on their
+inputs, each followed by a sum over the group and then its bias. A model
+built with neither behaves exactly as one built before them.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from css_tpu_torch.ops.features import cumulative_mvn, mvn
+from css_tpu_torch.parallel.mesh import (all_reduce_sum, copy_to,
+                                         group_size, reduce_from)
 
 
 class Dense(nn.Linear):
@@ -55,6 +65,21 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class RowParallelDense(Dense):
+    """Dense whose input dimension is split over ``group``: the partial
+    products are summed over the group, then the bias is added once."""
+
+    def __init__(self, in_features: int, out_features: int, group=None):
+        super().__init__(in_features, out_features)
+        self.group = group
+
+    def forward(self, x):
+        if self.group is None:
+            return super().forward(x)
+        y = reduce_from(F.linear(x, self.weight.to(x.dtype)), self.group)
+        return y + self.bias.to(x.dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -78,7 +103,13 @@ class BatchNorm(nn.Module):
     biased variance over every axis but the last, E[x^2] - E[x]^2 clipped
     at 0 (Flax's fast variance), and the running statistics move as
     ``ra = 0.9 ra + 0.1 batch``, the variance biased too. This is not
-    ``torch.nn.BatchNorm1d``, whose running variance is unbiased."""
+    ``torch.nn.BatchNorm1d``, whose running variance is unbiased.
+
+    With ``group`` set (``set_batchnorm_group``), the batch's statistics
+    are those of the group's global batch: every rank's mean of x and of
+    x^2 summed over the group, forward and backward, and divided by its
+    size (each rank holds as many rows). A one-rank group changes
+    nothing."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -88,14 +119,19 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
+        self.group = None
 
     def forward(self, x):
         xf = x.float()
         if self.training:
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp(torch.square(xf).mean(dims)
-                              - torch.square(mean), min=0.0)
+            mean, meansq = xf.mean(dims), torch.square(xf).mean(dims)
+            if self.group is not None:
+                stats = all_reduce_sum(torch.stack([mean, meansq]),
+                                       self.group)
+                n = group_size(self.group)
+                mean, meansq = stats / n if n > 1 else stats
+            var = torch.clamp(meansq - torch.square(mean), min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -137,64 +173,91 @@ def set_dropout_generator(model: nn.Module, generator) -> None:
             m.generator = generator
 
 
-class FeedForward(nn.Module):
-    """Pre-LN FFN: drop(w2(drop(relu(w1(LN(x))))))."""
+def set_batchnorm_group(model: nn.Module, group) -> None:
+    """Take every BatchNorm's training statistics over ``group``."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
-    def __init__(self, d_model: int, d_inner: int, dropout_rate: float = 0.0):
+
+def _tp_split(n: int, group, what: str) -> int:
+    parts = group_size(group)
+    if n % parts:
+        raise ValueError(f"{what} {n} does not split over {parts} ranks")
+    return n // parts
+
+
+class FeedForward(nn.Module):
+    """Pre-LN FFN: drop(w2(drop(relu(w1(LN(x)))))); under ``tp_group``
+    each rank holds d_inner / tp of the hidden units."""
+
+    def __init__(self, d_model: int, d_inner: int, dropout_rate: float = 0.0,
+                 tp_group=None):
         super().__init__()
+        self.tp_group = tp_group
+        d_local = _tp_split(d_inner, tp_group, "linear_units")
         self.layer_norm = LayerNorm(d_model)
-        self.w1 = Dense(d_model, d_inner)
-        self.w2 = Dense(d_inner, d_model)
+        self.w1 = Dense(d_model, d_local)
+        self.w2 = RowParallelDense(d_local, d_model, tp_group)
         self.drop = Dropout(dropout_rate)
 
     def forward(self, x):
-        x = F.relu(self.w1(self.layer_norm(x)))
+        x = F.relu(self.w1(copy_to(self.layer_norm(x), self.tp_group)))
         return self.drop(self.w2(self.drop(x)))
 
 
 class RelPosMultiHeadAttention(nn.Module):
     """MHSA with a relative-position key term:
-    scores = (q k^T + q pos_k^T) / sqrt(d_k)."""
+    scores = (q k^T + q pos_k^T) / sqrt(d_k). Under ``tp_group`` each
+    rank holds ``n_head`` (the local heads) = heads / tp of them."""
 
-    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0):
+    def __init__(self, n_head: int, n_feat: int, dropout_rate: float = 0.0,
+                 tp_group=None):
         super().__init__()
-        self.n_head = n_head
+        self.tp_group = tp_group
+        self.d_k = n_feat // n_head
+        self.n_head = _tp_split(n_head, tp_group, "attention_heads")
         self.n_feat = n_feat
+        self.width = self.n_head * self.d_k  # n_feat without TP
         self.layer_norm = LayerNorm(n_feat)
-        self.linear_q = Dense(n_feat, n_feat)
-        self.linear_k = Dense(n_feat, n_feat)
-        self.linear_v = Dense(n_feat, n_feat)
-        self.linear_out = Dense(n_feat, n_feat)
+        self.linear_q = Dense(n_feat, self.width)
+        self.linear_k = Dense(n_feat, self.width)
+        self.linear_v = Dense(n_feat, self.width)
+        self.linear_out = RowParallelDense(self.width, n_feat, tp_group)
         self.drop = Dropout(dropout_rate)
 
     def _heads(self, x):
         b, t, _ = x.shape
-        return x.reshape(b, t, self.n_head, self.n_feat // self.n_head
-                         ).transpose(1, 2)
+        return x.reshape(b, t, self.n_head, self.d_k).transpose(1, 2)
 
     def _qkv(self, x):
-        x = self.layer_norm(x)
+        x = copy_to(self.layer_norm(x), self.tp_group)
         return (self._heads(self.linear_q(x)), self._heads(self.linear_k(x)),
                 self._heads(self.linear_v(x)))
 
     def _attend(self, q, k, v, pos_k, mask):
         """q (B, h, T, d), k and v (B, h, S, d), pos_k (T, S, d) or None,
         mask (T, S) bool or None -> (B, T, n_feat)."""
-        d_k = self.n_feat // self.n_head
+        return self.drop(self.linear_out(self._context(q, k, v, pos_k,
+                                                       mask)))
+
+    def _context(self, q, k, v, pos_k, mask):
+        """The heads' attention-weighted values, (B, T, h * d)."""
         scores = q @ k.transpose(-1, -2)  # (B, h, T, S)
         if pos_k is not None:
+            # the local heads' share of pe_k's gradient is summed over TP
+            pos_k = copy_to(pos_k, self.tp_group)
             scores = scores + torch.einsum("bhtd,tsd->bhts", q,
                                            pos_k.to(q.dtype))
-        scores = scores / math.sqrt(d_k)
+        scores = scores / math.sqrt(self.d_k)
         if mask is not None:
             scores = torch.where(mask, scores,
                                  torch.full((), -1e9, dtype=scores.dtype,
                                             device=scores.device))
         attn = self.drop(torch.softmax(scores.float(), dim=-1).to(q.dtype))
         out = attn @ v  # (B, h, T, d)
-        b, _, t, _ = q.shape
-        return self.drop(self.linear_out(
-            out.transpose(1, 2).reshape(b, t, self.n_feat)))
+        b, h, t, d = q.shape
+        return out.transpose(1, 2).reshape(b, t, h * d)
 
     def forward(self, x, pos_k, mask=None):
         """x (B, T, n_feat), pos_k (T, T, d_k) or None, mask (T, T) bool
@@ -279,13 +342,15 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, n_head: int, d_ffn: int,
                  kernel_size: int, dropout_rate: float = 0.0,
-                 causal: bool = False):
+                 causal: bool = False, tp_group=None):
         super().__init__()
-        self.feed_forward_in = FeedForward(d_model, d_ffn, dropout_rate)
+        self.feed_forward_in = FeedForward(d_model, d_ffn, dropout_rate,
+                                           tp_group)
         self.self_attn = RelPosMultiHeadAttention(n_head, d_model,
-                                                  dropout_rate)
+                                                  dropout_rate, tp_group)
         self.conv = ConvModule(d_model, kernel_size, dropout_rate, causal)
-        self.feed_forward_out = FeedForward(d_model, d_ffn, dropout_rate)
+        self.feed_forward_out = FeedForward(d_model, d_ffn, dropout_rate,
+                                            tp_group)
         self.layer_norm = LayerNorm(d_model)
 
     def forward(self, x, pos_k, mask=None):
@@ -316,7 +381,7 @@ class ConformerEncoder(nn.Module):
                  num_blocks: int = 16, kernel_size: int = 33,
                  relative_pos_emb: bool = True, maxlen: int = 1000,
                  dropout_rate: float = 0.0, causal: bool = False,
-                 left_context: int = 128):
+                 left_context: int = 128, tp_group=None):
         super().__init__()
         self.maxlen = maxlen
         self.causal = causal
@@ -329,7 +394,7 @@ class ConformerEncoder(nn.Module):
             if relative_pos_emb else None)
         self.encoders = nn.ModuleList([
             EncoderLayer(attention_dim, attention_heads, linear_units,
-                         kernel_size, dropout_rate, causal)
+                         kernel_size, dropout_rate, causal, tp_group)
             for _ in range(num_blocks)])
 
     def _offsets(self, t: int) -> torch.Tensor:
@@ -347,11 +412,17 @@ class ConformerEncoder(nn.Module):
         T-|offset| copies of each offset. On the card that runs PyTorch's
         sort-based kernel, which adds each index's duplicates in a fixed
         order: deterministic from run to run (held bit-equal by a card test
-        in tests/test_torch_cuda.py); on the CPU it runs serially."""
+        in tests/test_torch_cuda.py). On the CPU, index_put_ adds them in
+        parallel with atomic adds when it has threads, in an order that
+        changes from run to run; there the gather is ``index_select``,
+        whose backward (``index_add_``) adds them in index order."""
         if isinstance(rel, int):
             rel = self._offsets(rel)
-        return self.pe_k[torch.clamp(rel, -self.maxlen, self.maxlen - 1)
-                         + self.maxlen]
+        idx = torch.clamp(rel, -self.maxlen, self.maxlen - 1) + self.maxlen
+        if idx.device.type == "cpu":
+            return self.pe_k.index_select(0, idx.reshape(-1)).reshape(
+                *idx.shape, self.pe_k.shape[-1])
+        return self.pe_k[idx]
 
     def _embed(self, xs):
         return F.relu(self.embed_drop(self.embed_norm(self.embed_linear(xs))))
@@ -399,7 +470,7 @@ class Conformer(nn.Module):
                  relative_pos_emb: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.1, causal: bool = False,
-                 left_context: int = 128):
+                 left_context: int = 128, tp_group=None):
         super().__init__()
         self.num_bins = num_bins
         self.num_spk = num_spk
@@ -410,12 +481,13 @@ class Conformer(nn.Module):
         self.conformer = ConformerEncoder(
             idim, attention_dim, attention_heads, linear_units, num_blocks,
             kernel_size, relative_pos_emb, dropout_rate=dropout_rate,
-            causal=causal, left_context=left_context)
+            causal=causal, left_context=left_context, tp_group=tp_group)
         self.linear = Dense(attention_dim, num_bins * (num_spk + num_noise))
 
     @classmethod
-    def build_model(cls, conf: Dict) -> "Conformer":
-        """From a checkpoint's conf (the css_tpu training flags)."""
+    def build_model(cls, conf: Dict, tp_group=None) -> "Conformer":
+        """From a checkpoint's conf (the css_tpu training flags); with
+        ``tp_group``, this rank's tensor-parallel shard."""
         return cls(
             idim=int(conf.get("idim", 257)),
             num_bins=int(conf.get("num_bins", 257)),
@@ -432,6 +504,7 @@ class Conformer(nn.Module):
             dropout_rate=float(conf.get("conformer_dropout_rate", 0.1)),
             causal=bool(conf.get("conformer_causal", False)),
             left_context=int(conf.get("conformer_left_context", 128)),
+            tp_group=tp_group,
         )
 
     def _mask_head(self, x: torch.Tensor) -> torch.Tensor:
@@ -461,7 +534,7 @@ class Conformer(nn.Module):
         kern = enc.encoders[0].conv.kernel_size
         zeros_f = torch.zeros((batch, enc.embed_linear.in_features),
                               device=dev)
-        kv_shape = (batch, heads, self.left_context, dim // heads)
+        kv_shape = (batch, heads, self.left_context, att.d_k)
         layers = tuple(
             ((torch.zeros(kv_shape, dtype=dt, device=dev),
               torch.zeros(kv_shape, dtype=dt, device=dev),

@@ -30,6 +30,14 @@ the device with the ``DeviceMixer`` the step is handed.
 converters, and the optimiser's leaves in ``jax.tree.leaves`` order of the
 optax chain -- for Adam [count, mu by sorted parameter path, nu, schedule
 count], for SGD [schedule count].
+
+Data and tensor parallelism (``parallel/dp.py``) hook in through
+``comm``: the gradients (and the loss) are averaged over the data group
+before the clip, so the clip sees the global gradient and every rank
+decides the non-finite skip on the same values, the global norm sums the
+tensor-parallel shards over their group, and ``state``/``load_state`` see
+full tensors where the model holds shards. ``float_leaves`` are the
+tensors replica averaging averages.
 """
 
 from __future__ import annotations
@@ -94,8 +102,12 @@ class Trainer:
         self.optim = optim
         self.step = 0  # steps taken, non-finite ones included
         self.updates = 0  # updates applied: optax's counts
+        self.seed = seed
         self.generator = torch.Generator(self.device).manual_seed(seed)
         set_dropout_generator(self.model, self.generator)
+        # set by parallel/dp.py: reduce(loss, grads) -> the reduced loss,
+        # grad_norm(grads), full(named) and local(named) tensors
+        self.comm = None
 
     # ------------------------------------------------------------ features
     def _mags(self, parts):
@@ -191,14 +203,23 @@ class Trainer:
         for p in self.model.parameters():
             if p.grad is None:  # unused: a zero gradient, as jax.grad's
                 p.grad = torch.zeros_like(p)
-        return loss, aux, global_norm([p.grad for p in
-                                       self.model.parameters()])
+        grads = [p.grad for p in self.model.parameters()]
+        if self.comm is not None:
+            loss = self.comm.reduce(loss.detach(), grads)
+            return loss, aux, self.comm.grad_norm(grads)
+        return loss, aux, global_norm(grads)
 
     def train_step(self, batch, dmix=None) -> Dict[str, torch.Tensor]:
         """One step on a batch of waveforms (or an encoded recipe and its
         ``DeviceMixer``); returns its metrics."""
         stats = [b.clone() for b in self.model.buffers()]
         loss, aux, norm = self.compute_grads(batch, dmix)
+        return self.apply_grads(loss, aux, norm, stats)
+
+    def apply_grads(self, loss, aux, norm, stats) -> Dict[str, torch.Tensor]:
+        """The update of ``compute_grads``' gradients: clip, optimiser and
+        schedule, or for a non-finite loss or norm the BatchNorm
+        statistics put back to ``stats``; returns the step's metrics."""
         grads = [p.grad for p in self.model.parameters()]
         finite = bool(torch.isfinite(loss) & torch.isfinite(norm))
         if finite:
@@ -280,15 +301,45 @@ class Trainer:
             out[name] = st.get(key, torch.zeros_like(p))
         return out
 
+    def _full(self, named: Dict[str, torch.Tensor]) -> Dict:
+        return self.comm.full(named) if self.comm is not None else named
+
+    def _local(self, named: Dict[str, torch.Tensor]) -> Dict:
+        return self.comm.local(named) if self.comm is not None else named
+
+    def float_leaves(self) -> list:
+        """Every float tensor of the training state, in a fixed order:
+        the parameters, the float buffers (BatchNorm's running
+        statistics) and Adam's two moments (made, as zeros, where no step
+        has made them yet). Integer leaves (the counts) are not among
+        them."""
+        params = list(self.model.parameters())
+        leaves = params + [b for b in self.model.buffers()
+                           if b.is_floating_point()]
+        if self.optim == "adam":
+            for p in params:
+                st = self.optimizer.state[p]
+                if not st:
+                    st.update(step=torch.tensor(0.0),
+                              exp_avg=torch.zeros_like(p),
+                              exp_avg_sq=torch.zeros_like(p))
+                leaves += [st["exp_avg"], st["exp_avg_sq"]]
+        return leaves
+
     def state(self) -> TrainState:
-        """The trainer's state in the JAX package's layout (numpy)."""
-        params, _ = to_jax(dict(self.model.named_parameters()))
+        """The trainer's state in the JAX package's layout (numpy), full
+        tensors under tensor parallelism (a collective: every rank of the
+        model group calls it)."""
+        params, _ = to_jax(self._full(dict(self.model.named_parameters())))
         _, stats = to_jax(dict(self.model.named_buffers()))
         count = np.asarray(self.updates, np.int32)
         opt = [count]
         if self.optim == "adam":
-            opt = ([count] + tree_leaves(to_jax(self._moments("exp_avg"))[0])
-                   + tree_leaves(to_jax(self._moments("exp_avg_sq"))[0])
+            opt = ([count]
+                   + tree_leaves(to_jax(self._full(
+                       self._moments("exp_avg")))[0])
+                   + tree_leaves(to_jax(self._full(
+                       self._moments("exp_avg_sq")))[0])
                    + [count])
         return TrainState(step=self.step, params=params, batch_stats=stats,
                           opt_state=opt)
@@ -296,8 +347,8 @@ class Trainer:
     def load_state(self, state: TrainState) -> None:
         """Set params, BatchNorm statistics, the optimiser state and the
         step counter from a TrainState (``checkpoint.restore_state``)."""
-        self.model.load_state_dict(from_jax(self.model, state.params,
-                                            state.batch_stats))
+        self.model.load_state_dict(self._local(
+            from_jax(self.model, state.params, state.batch_stats)))
         self.step = int(state.step)
         opt = state.opt_state
         self.updates = int(opt[-1])  # the schedule's count
@@ -306,9 +357,10 @@ class Trainer:
         n = (len(opt) - 2) // 2
         like = to_jax(dict(self.model.named_parameters()))[0]
         named = dict(self.model.named_parameters())
-        mu = from_jax(self.model, tree_unflatten(like, list(opt[1:1 + n])))
-        nu = from_jax(self.model, tree_unflatten(like,
-                                                 list(opt[1 + n:1 + 2 * n])))
+        mu = self._local(from_jax(self.model, tree_unflatten(
+            like, list(opt[1:1 + n]))))
+        nu = self._local(from_jax(self.model, tree_unflatten(
+            like, list(opt[1 + n:1 + 2 * n]))))
         self.optimizer.state.clear()
         for name, p in named.items():
             self.optimizer.state[p] = {

@@ -203,3 +203,31 @@ def test_causal_conf_builds_the_causal_model(small_pair):
         _, m_got = tm.eval()(torch.as_tensor(f))
     np.testing.assert_allclose(m_got.numpy(), np.asarray(m_want), atol=ATOL,
                                rtol=RTOL)
+
+
+def test_relative_position_gradient_is_deterministic_on_the_cpu():
+    """On the CPU, where index_put_(accumulate=True) adds duplicate
+    indices with atomic adds on several threads, the relative-position
+    gather's backward gives bit-equal gradients from run to run (the
+    card's test is in tests/test_torch_cuda.py), equal to a float64 sum
+    to float32 rounding."""
+    enc = tc.ConformerEncoder(num_blocks=1)
+    torch.nn.init.normal_(enc.pe_k, generator=torch.Generator().manual_seed(1))
+    upstream = torch.randn((249, 249, 64),
+                           generator=torch.Generator().manual_seed(0))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(threads, 4))
+    try:
+        grads = []
+        for _ in range(4):
+            enc.pe_k.grad = None
+            (enc.rel_pos(249) * upstream).sum().backward()
+            grads.append(enc.pe_k.grad.clone())
+    finally:
+        torch.set_num_threads(threads)
+    assert all(torch.equal(grads[0], g) for g in grads[1:])
+    pe64 = enc.pe_k.detach().double().requires_grad_()
+    idx = torch.clamp(enc._offsets(249), -enc.maxlen, enc.maxlen - 1)
+    (pe64[idx + enc.maxlen] * upstream.double()).sum().backward()
+    torch.testing.assert_close(grads[0], pe64.grad.float(), rtol=1e-5,
+                               atol=1e-4)

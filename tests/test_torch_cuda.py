@@ -470,3 +470,69 @@ def test_relative_position_gradient_is_deterministic(card):
         grads.append(enc.pe_k.grad.clone())
     assert torch.equal(grads[0], grads[1])
     assert grads[0].abs().sum() > 0
+
+
+def _parallel_spec(tmp_path, world, strategy="dp"):
+    """A small Conformer's DP steps through css_tpu_torch.parallel.runner,
+    its ranks sharing the card over gloo."""
+    from css_tpu_torch.models import build_model, init_variables
+    from css_tpu_torch.parallel import runner
+    from css_tpu_torch.trainer.checkpoint import save_checkpoint_dict
+
+    # one speaker: permutation-invariant training over two near-equal
+    # random-init outputs can pick the other order for an example on a
+    # rounding difference, which moves its gradient by a finite step
+    conf = {"conformer_attention_dim": 64, "conformer_attention_heads": 4,
+            "conformer_linear_units": 128, "conformer_num_blocks": 2,
+            "conformer_kernel_size": 7, "conformer_dropout_rate": 0.0,
+            "num_spk": 1}
+    params, stats = init_variables(build_model("Conformer", conf), 3)
+    save_checkpoint_dict(str(tmp_path / "init.mdl"),
+                         {"params": params, "batch_stats": stats})
+    rng = np.random.default_rng(4)
+    runner.save_batches(tmp_path / "b.npz", [
+        {k: (rng.standard_normal((8, 32000)) * 0.1).astype(np.float32)
+         for k in ("mix", "source1")} for _ in range(2)])
+    return {"strategy": strategy, "world": world, "device": "cuda",
+            "model": {"name": "Conformer", "conf": conf},
+            "objective": {"name": "MSE"},
+            "trainer": {"optim": "sgd", "lr": 1e-3, "grad_thresh": 5.0},
+            "init": str(tmp_path / "init.mdl"),
+            "batches": str(tmp_path / "b.npz"), "steps": 2,
+            "timeout_s": 120.0}
+
+
+def test_gloo_collectives_on_cuda_tensors(card, tmp_path):
+    """Two ranks on the one card: gloo takes CUDA tensors for all_reduce
+    and broadcast, the port's only collectives (and its gather)."""
+    from css_tpu_torch.parallel import runner
+
+    res = runner.run({"strategy": "collectives", "world": 2,
+                      "device": "cuda", "timeout_s": 60.0}, tmp_path)
+    for r in res:
+        assert r["backend"] == "gloo" and r["device"].startswith("cuda")
+        assert r["all_reduce"] == [3.0] * 4
+        assert r["broadcast"] == [1.0] * 3
+        assert r["gather"] == [[0.0, 1.0], [0.0, 1.0]]
+
+
+def test_dp_step_at_world_2_on_the_card(card, tmp_path):
+    """Two DP ranks (4 of the 8 rows each) against one process
+    on all the rows: loss 1e-5 relative, gradients rel-L2 1e-5, K3 once a
+    step on each rank with no plain route, ranks bit-equal."""
+    from css_tpu_torch.parallel import runner
+
+    spec = _parallel_spec(tmp_path, 2)
+    single = runner.run(dict(spec, strategy="single", world=1),
+                        tmp_path / "single")[0]
+    res = runner.run(spec, tmp_path / "dp")
+    g1 = {k: v for k, v in single["arrays"].items() if k.startswith("grad/")}
+    for r in res:
+        assert r["backend"] == "gloo" and r["in_sync"]
+        assert r["launches"]["stft_mag"] == 2
+        assert not any(r["plain_routes"].values())
+        np.testing.assert_allclose(r["losses"], single["losses"], rtol=1e-5)
+        num = sum(float(np.sum((r["arrays"][k] - v) ** 2))
+                  for k, v in g1.items())
+        den = sum(float(np.sum(v ** 2)) for v in g1.values())
+        assert np.sqrt(num / den) <= 1e-5

@@ -38,8 +38,8 @@ print(" ".join(names))
     assert res.returncode == 0, res.stderr
     count, names = res.stdout.strip().splitlines()
     assert int(count) >= 20
-    # the 7ch slice's modules, the training slices' and the streaming
-    # slice's are among them
+    # the 7ch slice's modules, the training slices', the streaming
+    # slice's and the parallel slice's are among them
     for name in ("executor.doa", "executor.reanchor", "ops.mvdr",
                  "data.spatial", "ops.pit", "objectives", "objectives.base",
                  "objectives.mse", "objectives.snr", "objectives.masksnr",
@@ -48,7 +48,10 @@ print(" ".join(names))
                  "data.mixer", "data.loader", "utils.logging", "cli.train",
                  "cli.combine", "data.device_mixer", "data.sessions",
                  "ops.native", "trainer.probe", "utils.metrics",
-                 "executor.streaming", "executor.hop_streaming"):
+                 "executor.streaming", "executor.hop_streaming",
+                 "parallel", "parallel.mesh", "parallel.dp",
+                 "parallel.launch", "parallel.runner", "executor.sharded",
+                 "cli.train_parallel"):
         assert "css_tpu_torch." + name in names.split()
 
 

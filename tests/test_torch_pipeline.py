@@ -122,13 +122,27 @@ def test_pipeline_matches_reference(small_model, session, tmp_path):
     np.testing.assert_allclose(back, got[0], atol=2.0 / 32767)
 
 
-def test_pipeline_refuses_unported_options(small_model):
-    tm = Conformer.build_model(CONF)
-    for section, key, item in [("separation", "sharded", "item 10")]:
-        config = _config()
-        config[section][key] = True
-        with pytest.raises(NotImplementedError, match=item):
-            CssPipeline(tm, config, device="cpu")
+def test_pipeline_refuses_unported_options(small_model, session):
+    """``separation.sharded: true``, once refused, is now the port of the
+    JAX package's sharded pipeline: its windows split over 8 shards (the
+    JAX package's 8-device mesh; the port's 8 shards on the CPU), and the
+    same streams as css_tpu's sharded pipeline and as the port's
+    default path."""
+    jm, v = small_model
+    config = _config()
+    config["separation"]["sharded"] = True
+    want = JaxPipeline(jm, v, config).process(session)
+    tm = _torch_model(v)
+    pipe = CssPipeline(tm, config, device="cpu", shard_devices=["cpu"] * 8)
+    assert pipe.sharded is not None and pipe.sharded.n_shards == 8
+    got = pipe.process(session)
+    default = CssPipeline(_torch_model(v), _config(),
+                          device="cpu").process(session)
+    assert len(got) == len(want) == 2
+    for g, w, d in zip(got, want, default):
+        assert g.shape == w.shape == session.shape
+        np.testing.assert_allclose(g, w, atol=1e-4)
+        np.testing.assert_allclose(g, d, atol=1e-4)
 
 
 def test_multichannel_recording_separates_channel_0(small_model, session):

@@ -259,16 +259,53 @@ def test_cli_train_writes_css_tpu_file_set_and_separates(tmp_path):
     assert jckpt.load_checkpoint(str(port / "4.1.mdl"))["step"] == 12
 
 
-def test_cli_train_refuses_what_is_not_ported(tmp_path):
-    base = TINY + ["--expdir", str(tmp_path), "--device", "cpu"]
-    for extra, item in ([["--strategy", "dp"], "item 10"],
-                        [["--tp", "2"], "item 10"],
-                        [["--multihost"], "item 10"],
-                        [["--multihost", "--spatialize-channels", "7",
-                          "--device-mix", "--probe-sessions", "2"],
-                         "item 10"]):
-        with pytest.raises(NotImplementedError, match=item):
-            ttrain.main(base + extra)
+def test_cli_train_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Item 10's flags, which the port refused before it had parallel
+    training, are accepted: --strategy dp and replica_avg (one process, a
+    world-1 gloo group), --tp under the single strategy (ignored there, as
+    css_tpu ignores it) and --multihost with one process. What they refuse
+    is what css_tpu's CLI refuses, word for word: css_tpu is shown two
+    processes by its jax.process_count, the port by --num-processes 2
+    (it refuses before it joins the group)."""
+    from css_tpu_torch.parallel import launch
+
+    quick = ["--num-epochs", "1", "--batches-per-epoch", "1",
+             "--validate-batches", "1"]
+    for i, extra in enumerate((
+            ["--strategy", "dp"], ["--strategy", "replica_avg"],
+            ["--tp", "2"],
+            ["--strategy", "dp", "--multihost", "--num-processes", "1",
+             "--process-id", "0", "--coordinator",
+             f"localhost:{launch.free_port()}"])):
+        expdir = tmp_path / f"accepted{i}"
+        ttrain.main(TINY + quick + extra + ["--expdir", str(expdir),
+                                            "--device", "cpu"])
+        assert (expdir / "1.1.mdl").exists()
+        assert not torch.distributed.is_initialized()
+    two = ["--multihost", "--num-processes", "2", "--process-id", "0",
+           "--coordinator", "localhost:1"]
+    for extra, message, n_proc in (
+            (["--strategy", "dp", "--batch-size", "3"],
+             "--batch-size 3 must be divisible by 2 processes", 2),
+            (["--spatialize-channels", "7", "--device-mix"],
+             "--spatialize-channels with --device-mix is single-process "
+             "for now", 2),
+            (["--device-mix"], "--device-mix with multiple processes "
+             "requires --strategy dp or replica_avg", 2),
+            (["--strategy", "dp", "--tp", "2", "--model", "BLSTM"],
+             "--tp>1 currently supports Conformer only", 1)):
+        args = ["--synthetic-data", "--synthetic-speakers", "4",
+                "--synthetic-utts", "2", "--batch-size", "2",
+                "--min-window-size", "1.0", "--max-window-size", "1.0",
+                "--num-workers", "1", "--expdir", str(tmp_path)] + extra
+        with pytest.raises(SystemExit) as port:
+            ttrain.main(args + ["--device", "cpu"]
+                        + (two if n_proc > 1 else []))
+        with monkeypatch.context() as mp:
+            mp.setattr(jax, "process_count", lambda: n_proc)
+            with pytest.raises(SystemExit) as ref:
+                jtrain.main(args)
+        assert str(port.value) == str(ref.value) == message
     # spatial training, device mixing and the probe are ported (items
     # 8a-8c): what they refuse now is what css_tpu's CLI refuses
     for extra, message in (
