@@ -154,6 +154,29 @@ Phases, each timed on its own line:
            unsharded pipeline; K3 once a shard batch, K1 once, K2 on the
            BLSTM's shard batches.
      The PAR_* comments hold the gates.
+ 10. Export, serve, import, tools (the CLIs the JAX package has beside
+     separation and training):
+       (a) ``cli.export``'s ``export_forward`` (torch.export) of the
+           flagship (its bf16 compute) and of the full-width BLSTM (float32)
+           at the separator batch (32, 150, 257), saved and loaded: seconds
+           and bytes; the BLSTM's graph holds K2 as 6 registered-op nodes
+           and no unrolled loop, the Conformer's no op of the port's;
+       (b) ``Separator(None, exported_path=...)`` in the pipeline against
+           the live separator on the session: masks (and the BLSTM's
+           magnitudes) within SERVE_*_ATOL, each served run launching what
+           the live one launches (K3 3, K1 1, K2 18 on the BLSTM), no plain
+           route; served and live seconds per session (median of
+           SERVE_REPS);
+       (c) the flagship's weights saved as a reference torch ``.mdl`` and
+           imported by ``python -m css_tpu_torch.cli.import_torch``: the
+           imported checkpoint's float32 masks against the flagship's;
+       (d) ``recipes/separate_libricss_torch.sh`` with the flagship on a
+           LibriCSS-layout tree of synthetic sessions (prepare ->
+           ``cli.separate --config configs/infer_1ch.yaml`` -> ``cli.wer``
+           with ``cli.toy_asr`` as the ASR): exit 0, per-stage seconds, a
+           finite corpus WER, each separation's logged launches (K3 and K1,
+           no plain route); then ``cli.evaluate`` on the streams against
+           an in-process SI-SNR of the same files.
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and last the result line ``{"ok": true, "device": {...}}``. Progress goes
 to stderr. Any failed check raises, and the exit code is then non-zero;
@@ -165,6 +188,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -465,6 +489,31 @@ DRIVER_ARGS = ["--synthetic-data", "--synthetic-speakers", "4",
                "--num-workers", "1"]
 
 
+# Phase 10, export, serve, import, tools. (b) The artifact of the
+# full-width BLSTM (float32) runs the live model's ops, K2 through the
+# registered op included, on the same inputs: masks and magnitudes within
+# SERVE_BLSTM_ATOL. The flagship's artifact runs its bf16 compute's ops:
+# expected bit-equal, held to SERVE_FLAGSHIP_ATOL (a bf16 rounding step of
+# a mask near 1 is 2^-8; 1e-3 allows none), the gap printed. Each served
+# run of the session launches what the live one launches. (c) The
+# flagship's weights written as a reference torch checkpoint and imported
+# by cli.import_torch: the imported checkpoint's float32 masks equal the
+# flagship's within IMPORT_ATOL (the same float32 values). (d) The LibriCSS
+# recipe on TOOLS_SESSIONS synthetic sessions of TOOLS_SESSION_SEC (pitch-
+# token transcripts from PROBE_CORPUS's voices); cli.evaluate's SI-SNR of
+# the separated streams against an in-process pit_si_snr_db of the same
+# files within EVAL_ATOL_DB.
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+SERVE_BLSTM_ATOL = 1e-5
+SERVE_FLAGSHIP_ATOL = 1e-3
+SERVE_REPS = 5
+IMPORT_ATOL = 1e-6
+TOOLS_SESSIONS, TOOLS_SESSION_SEC = 2, 30.0
+TOOLS_SEED = 20261023
+EVAL_ATOL_DB = 1e-3
+TOOLS_TIMEOUT_S = 600
+
+
 def log(*args):
     print(*args, file=sys.stderr, flush=True)
 
@@ -683,13 +732,21 @@ def main_shapes() -> dict:
     from css_tpu_torch.executor.windowing import EXTRA_SAMPLES
 
     sep = CONFIG["separation"]
-    sr = CONFIG["sampling_rate"]
-    win = int(sep["eval_win"] * sr) + EXTRA_SAMPLES
-    win_hop = int(sep["eval_hop"] * sr)
+    win = int(sep["eval_win"] * CONFIG["sampling_rate"]) + EXTRA_SAMPLES
     frame, hop = sep["frame_length"], sep["frame_shift"]
     return {"batch": sep["batch_size"], "win": win, "frame": frame,
             "hop": hop, "n_frames": (win - frame) // hop + 1,
-            "n_windows": -(-(int(SESSION_SEC * sr) - win) // win_hop) + 1}
+            "n_windows": windows_of(SESSION_SEC)}
+
+
+def windows_of(sec: float) -> int:
+    """Separator windows that cover a recording of ``sec`` seconds under
+    CONFIG."""
+    from css_tpu_torch.executor.windowing import EXTRA_SAMPLES
+
+    sep, sr = CONFIG["separation"], CONFIG["sampling_rate"]
+    win = int(sep["eval_win"] * sr) + EXTRA_SAMPLES
+    return -(-(int(sec * sr) - win) // int(sep["eval_hop"] * sr)) + 1
 
 
 def stft_input(torch, dev):
@@ -768,6 +825,60 @@ def lstm_layer_inputs(torch, dev, hidden: int):
     w_hh = torch.as_tensor(np.ascontiguousarray(layer["w_hh_fwd"].T),
                            device=dev)
     return x, w_ih, bias, w_hh, x @ w_ih.t() + bias
+
+
+def reference_state_dict(torch, params: dict, batch_stats: dict) -> dict:
+    """The reference torch Conformer's state_dict (its names and layouts:
+    ``conformer.encoders.i.conv.pw_conv_1`` a Conv2d(1, 2, 1), the
+    depthwise conv (C, 1, K), Linear weights (out, in)) of a JAX-layout
+    (params, batch_stats): the inverse of ``params_from_torch``, so that
+    phase 10 can import the flagship as a reference checkpoint
+    (tests/test_torch_import_torch.py holds it against css_tpu's
+    converter)."""
+    def t(a, shape=None):
+        a = np.ascontiguousarray(np.asarray(a, np.float32))
+        return torch.as_tensor(a if shape is None else a.reshape(shape))
+
+    sd = {}
+
+    def dense(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = t(p["kernel"].T), t(
+            p["bias"])
+
+    def ln(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = t(p["scale"]), t(p["bias"])
+
+    conf = params["conformer"]
+    dense("conformer.embed.0", conf["embed_linear"])
+    ln("conformer.embed.1", conf["embed_norm"])
+    sd["conformer.pos_emb.pe_k.weight"] = t(conf["pe_k"])
+    blocks = sorted((k for k in conf if k.startswith("encoders_")),
+                    key=lambda k: int(k.split("_")[1]))
+    for k in blocks:
+        p, e = f"conformer.encoders.{k.split('_')[1]}", conf[k]
+        for ff in ("feed_forward_in", "feed_forward_out"):
+            ln(f"{p}.{ff}.layer_norm", e[ff]["layer_norm"])
+            dense(f"{p}.{ff}.net.0", e[ff]["w1"])
+            dense(f"{p}.{ff}.net.3", e[ff]["w2"])
+        ln(f"{p}.self_attn.layer_norm", e["self_attn"]["layer_norm"])
+        for lin in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            dense(f"{p}.self_attn.{lin}", e["self_attn"][lin])
+        c = e["conv"]
+        ln(f"{p}.conv.layer_norm", c["layer_norm"])
+        sd[f"{p}.conv.pw_conv_1.weight"] = t(c["pw1_w"], (2, 1, 1, 1))
+        sd[f"{p}.conv.pw_conv_1.bias"] = t(c["pw1_b"])
+        sd[f"{p}.conv.dw_conv_1d.weight"] = t(
+            np.asarray(c["dw_kernel"]).transpose(2, 1, 0))
+        sd[f"{p}.conv.dw_conv_1d.bias"] = t(c["dw_bias"])
+        ln(f"{p}.conv.BN", c["bn"])
+        stats = batch_stats["conformer"][k]["conv"]["bn"]
+        sd[f"{p}.conv.BN.running_mean"] = t(stats["mean"])
+        sd[f"{p}.conv.BN.running_var"] = t(stats["var"])
+        sd[f"{p}.conv.pw_conv_2.weight"] = t(c["pw2_w"], (1, 1, 1, 1))
+        sd[f"{p}.conv.pw_conv_2.bias"] = t(c["pw2_b"])
+        ln(f"{p}.layer_norm", e["layer_norm"])
+    dense("linear", params["linear"])
+    return sd
 
 
 def counted(kernel, n: int, label: str, fn):
@@ -2388,6 +2499,310 @@ def sharded_path(torch, dev, results, counters, mix) -> dict:
         del model, plain, pipe
     return g
 
+def export_artifact(torch, model, dev, path) -> dict:
+    """cli.export's export_forward at the separator batch's shape on the
+    card, saved to ``path`` and loaded back: seconds to export, bytes,
+    seconds to load, and the graph's port ops and sigmoid/tanh nodes (an
+    unrolled recurrence)."""
+    from css_tpu_torch.cli import export
+
+    m = main_shapes()
+    t = time.perf_counter()
+    program = export.export_forward(model, m["batch"], m["n_frames"],
+                                    m["frame"] // 2 + 1, dev)
+    export_s = time.perf_counter() - t
+    torch.export.save(program, path)
+    t = time.perf_counter()
+    export.load_exported(path)
+    load_s = time.perf_counter() - t
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    return {"export_s": export_s, "bytes": path.stat().st_size,
+            "load_s": load_s, "graph_nodes": len(program.graph.nodes),
+            "port_ops": [t for t in targets if t.startswith("css_tpu_torch.")],
+            "sigmoid_tanh_nodes": sum("sigmoid" in t or "tanh" in t
+                                      for t in targets)}
+
+
+def served_separator(path, dev):
+    """A Separator serving the artifact at ``path`` under CONFIG."""
+    from css_tpu_torch.executor.separator import Separator
+
+    sep = CONFIG["separation"]
+    return Separator(None, exported_path=str(path),
+                     sr=CONFIG["sampling_rate"], eval_win=sep["eval_win"],
+                     eval_hop=sep["eval_hop"], frame_len=sep["frame_length"],
+                     frame_hop=sep["frame_shift"],
+                     batch_size=sep["batch_size"], device=dev)
+
+
+def serve_path(torch, dev, results, run, mix, work) -> dict:
+    """Phase 10 (a)-(b): export the flagship and the full-width BLSTM,
+    serve each artifact against its live model on the session."""
+    from css_tpu_torch.cli.separate import load_model
+    from css_tpu_torch.executor.pipeline import CssPipeline
+    from css_tpu_torch.executor.windowing import pad_for_windows
+    from css_tpu_torch.models import blstm
+
+    n_batches = -(-main_shapes()["n_windows"] // main_shapes()["batch"])
+    out = {}
+    for name in ("conformer", "blstm"):
+        if name == "conformer":
+            model = load_model(CHECKPOINT)  # its own bf16 compute
+            atol = SERVE_FLAGSHIP_ATOL
+        else:
+            model = blstm.BLSTM.build_model({})  # 1024 x 3, float32
+            model.load_state_dict(blstm.params_from_jax(
+                blstm.init_params(BLSTM_SEED, {})))
+            atol = SERVE_BLSTM_ATOL
+        live = CssPipeline(model, CONFIG, device=dev)
+        art = export_artifact(torch, live.model, dev, work / f"{name}.pt2")
+        n_k2 = 2 * len(model.encoders) if name == "blstm" else 0
+        log(f"(a) export {name}: {json.dumps(art)}")
+        if name == "blstm" and (art["port_ops"] != [
+                "css_tpu_torch.lstm_fused.default"] * n_k2
+                or art["sigmoid_tanh_nodes"]):
+            raise AssertionError(
+                f"(a) the BLSTM's graph: {art['port_ops']} and "
+                f"{art['sigmoid_tanh_nodes']} sigmoid/tanh nodes, expected "
+                f"{n_k2} K2 op nodes and no unrolled loop")
+        if name == "conformer" and art["port_ops"]:
+            raise AssertionError(f"(a) the Conformer's graph holds ops of "
+                                 f"the port: {art['port_ops']}")
+        served = CssPipeline(model, CONFIG, device=dev)
+        served.separator = served_separator(work / f"{name}.pt2", dev)
+        wav = pad_for_windows(torch.as_tensor(mix, device=dev),
+                              live.separator.win, live.separator.hop)
+        masks_live, mags_live = live.separator.separate(wav)
+        masks_served, mags_served = served.separator.separate(wav)
+        mask_gap = float((masks_served - masks_live).abs().max())
+        mags_gap = float((mags_served - mags_live).abs().max())
+        del masks_live, mags_live, masks_served, mags_served
+        expect = {"stft_mag": n_batches, "istft": 1,
+                  "lstm_fused": n_batches * n_k2}
+        secs = {}
+        for label, pipe in (("live", live), ("served", served)):
+            run(pipe, mix, f"{name} {label} (cold)", expect)
+            times = []
+            for _ in range(SERVE_REPS):
+                outs, counts, sec = run(pipe, mix, f"{name} {label}", expect)
+                times.append(sec)
+            secs[label] = float(np.median(times))
+            if label == "served":
+                for r in results:
+                    r["launches_by_path"][f"served_{name}"] = \
+                        counts[r["name"]]
+                served_outs = outs
+            else:
+                live_outs = outs
+        stream_gap = max(float(np.abs(a - b).max())
+                         for a, b in zip(served_outs, live_outs))
+        out[name] = {**art, "mask_max_abs": mask_gap,
+                     "mag_max_abs": mags_gap, "stream_max_abs": stream_gap,
+                     "served_s_median": secs["served"],
+                     "live_s_median": secs["live"], "launches": counts,
+                     "compute_dtype": str(model.compute_dtype)[6:]}
+        log(f"(b) served {name}: {json.dumps(out[name])}")
+        if mask_gap > atol or (name == "blstm" and mags_gap > atol):
+            raise AssertionError(
+                f"(b) served {name} against live: masks {mask_gap:.3e}, "
+                f"magnitudes {mags_gap:.3e} (atol {atol})")
+        del model, live, served
+    return out
+
+
+def import_path(torch, dev, mix, work) -> dict:
+    """Phase 10 (c): the flagship's weights as a reference torch
+    checkpoint, through ``python -m css_tpu_torch.cli.import_torch``; the
+    imported checkpoint's float32 masks on the session against the
+    flagship's."""
+    from css_tpu_torch.cli.separate import load_model
+    from css_tpu_torch.executor.pipeline import CssPipeline
+    from css_tpu_torch.models import build_model, state_dict_from_checkpoint
+    from css_tpu_torch.trainer.checkpoint import load_checkpoint
+
+    ckpt = load_checkpoint(CHECKPOINT)
+    conf = dict(ckpt["conf"])
+    ref = work / "reference.mdl"
+    torch.save({"model": reference_state_dict(torch, ckpt["params"],
+                                              ckpt["batch_stats"]),
+                "epoch": int(ckpt["epoch"]), "loss": float(ckpt["loss"]),
+                "objective": {}, "optimizer": {}, "lr_sched": {}}, ref)
+    dst = work / "imported.mdl"
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "css_tpu_torch.cli.import_torch", str(ref),
+         str(dst), "--model", "Conformer", "--num-blocks",
+         str(conf["conformer_num_blocks"])],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+    import_s = time.perf_counter() - t
+    if res.returncode != 0:
+        raise AssertionError(f"(c) cli.import_torch failed: "
+                             f"{res.stderr[-2000:]}")
+    imported = load_checkpoint(dst)
+    if (imported["epoch"], imported["loss"]) != (ckpt["epoch"], ckpt["loss"]):
+        raise AssertionError("(c) the import lost the epoch or the loss")
+    flagship = load_model(CHECKPOINT)
+    flagship.compute_dtype = torch.float32
+    want = separator_masks(torch, CssPipeline(flagship, CONFIG, device=dev),
+                           mix, dev)
+    # the import keeps the weights, not the training conf: the flagship's
+    # widths in float32
+    model = build_model("Conformer", dict(conf, bf16=False))
+    model.load_state_dict(state_dict_from_checkpoint("Conformer", imported))
+    got = separator_masks(torch, CssPipeline(model, CONFIG, device=dev),
+                          mix, dev)
+    gap = float((got - want).abs().max())
+    rec = {"import_s": import_s, "reference_bytes": ref.stat().st_size,
+           "mask_max_abs": gap, "compute_dtype": "float32"}
+    log(f"(c) import: {json.dumps(rec)}")
+    if gap > IMPORT_ATOL:
+        raise AssertionError(f"(c) imported masks against the flagship's: "
+                             f"{gap:.3e} (atol {IMPORT_ATOL})")
+    return rec
+
+
+def libricss_tree(root, refs, mixes):
+    """TOOLS_SESSIONS synthetic two-talker sessions in the LibriCSS release
+    layout (record/raw_recording.wav, transcription/meeting_info.txt with
+    one row per speaker: its utterances' pitch tokens in turn order), their
+    sources as {key}_src{i}.wav and mixtures as {key}.wav. Returns the
+    keys."""
+    from css_tpu_torch.data.corpus import SyntheticCorpus
+    from css_tpu_torch.data.sessions import make_session
+    from css_tpu_torch.data.wav_io import write_wav
+
+    corpus = SyntheticCorpus(**PROBE_CORPUS)
+    conds = ["OV10", "0L", "OV20", "0S"]
+    keys = []
+    for i in range(TOOLS_SESSIONS):
+        mix, srcs, spoken = make_session(
+            corpus, np.random.default_rng(TOOLS_SEED + i), TOOLS_SESSION_SEC,
+            with_info=True)
+        d = (root / conds[i] /
+             f"overlap_ratio_10.0_sil0.1_1.0_session{i}_actual10.0")
+        (d / "record").mkdir(parents=True)
+        (d / "transcription").mkdir()
+        write_wav(d / "record" / "raw_recording.wav", mix)
+        rows = [" ".join(u.text for u in spoken[k::2] if u.text)
+                for k in range(2)]
+        (d / "transcription" / "meeting_info.txt").write_text(
+            "start\tend\tspeaker\tutterance_id\ttranscription\n" + "".join(
+                f"0.0\t{TOOLS_SESSION_SEC}\tspk{k}\tutt{k}\t{text}\n"
+                for k, text in enumerate(rows)))
+        key = f"session{i}_{conds[i]}"
+        keys.append(key)
+        write_wav(mixes / f"{key}.wav", mix)
+        for k, src in enumerate(srcs):
+            write_wav(refs / f"{key}_src{k}.wav", src)
+    return keys
+
+
+def check_recipe_launches(logs, keys) -> dict:
+    """Each cli.separate process of the recipe (one a session) logs its
+    kernel launches: K3 once a separator batch, K1 once, no K2 (the
+    flagship), no plain route. Returns their sums."""
+    want = {"stft_mag": -(-windows_of(TOOLS_SESSION_SEC)
+                          // main_shapes()["batch"]),
+            "istft": 1, "lstm_fused": 0}
+    if len(logs) != len(keys):
+        raise AssertionError(f"(d) {len(logs)} cli.separate launch records "
+                             f"for {len(keys)} sessions")
+    total = dict.fromkeys(want, 0)
+    for rec in logs:
+        if rec["launches"] != want or any(rec["plain_routes"].values()):
+            raise AssertionError(f"(d) cli.separate: {rec}, expected "
+                                 f"launches {want} and no plain route")
+        for k in total:
+            total[k] += rec["launches"][k]
+    return total
+
+
+def tools_path(torch, dev, results, work) -> dict:
+    """Phase 10 (d): recipes/separate_libricss_torch.sh (prepare ->
+    cli.separate --config configs/infer_1ch.yaml -> cli.wer with the toy
+    ASR) on the card, then cli.evaluate on its streams."""
+    from css_tpu_torch.data.wav_io import read_wav
+    from css_tpu_torch.utils.metrics import pit_si_snr_db
+
+    root, refs, mixes, out = (work / d for d in ("for_release", "refs",
+                                                 "mixes", "separated"))
+    for d in (refs, mixes):
+        d.mkdir(parents=True)
+    keys = libricss_tree(root, refs, mixes)
+    env = dict(os.environ, device=dev.type, model="Conformer",
+               SESSIONS=" ".join(k.split("_")[0] for k in keys),
+               ASR_CMD=f"{sys.executable} -m css_tpu_torch.cli.toy_asr {{wav}}")
+    t = time.perf_counter()
+    res = subprocess.run(
+        ["bash", "recipes/separate_libricss_torch.sh", str(root), CHECKPOINT,
+         str(out)], cwd=REPO_ROOT, env=env, capture_output=True, text=True,
+        timeout=TOOLS_TIMEOUT_S)
+    recipe_s = time.perf_counter() - t
+    if res.returncode != 0:
+        raise AssertionError(f"(d) the recipe failed (rc {res.returncode}):"
+                             f" {res.stderr[-3000:]}")
+    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^stage (\w+): ([0-9.]+) s$", res.stdout, re.M)}
+    logs = [json.loads(m.group(1)) for m in re.finditer(
+        r"kernel launches (\{.*\})$", res.stderr, re.M)]
+    launches = check_recipe_launches(logs, keys)
+    for r in results:
+        r["launches_by_path"]["libricss_recipe"] = launches[r["name"]]
+    summary = [json.loads(line) for line in open(out / "wer.jsonl")][-1]
+    if (sorted(stages) != ["prepare", "separate", "wer"]
+            or summary["num_recordings"] != len(keys)
+            or not summary["ref_words"] or not np.isfinite(summary["wer"])):
+        raise AssertionError(f"(d) stages {stages}, wer summary {summary}")
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "css_tpu_torch.cli.evaluate", "--estimates",
+         str(out), "--references", str(refs), "--mixtures", str(mixes),
+         "--output", str(work / "eval.jsonl")], cwd=REPO_ROOT,
+        capture_output=True, text=True, timeout=300)
+    evaluate_s = time.perf_counter() - t
+    if res.returncode != 0:
+        raise AssertionError(f"(d) cli.evaluate failed: {res.stderr[-2000:]}")
+    evals = [json.loads(line) for line in open(work / "eval.jsonl")]
+    gaps = []
+    for rec in evals[:-1]:
+        k = rec["num_spk"]
+        ests = [read_wav(out / f"{rec['key']}_{i}.wav")[0] for i in range(k)]
+        srcs = [read_wav(refs / f"{rec['key']}_src{i}.wav")[0]
+                for i in range(k)]
+        gaps.append(abs(rec["si_snr_db"] - pit_si_snr_db(ests, srcs)))
+    rec = {"sessions": len(keys), "session_s": TOOLS_SESSION_SEC,
+           "stages_s": stages, "recipe_s": recipe_s,
+           "evaluate_s": evaluate_s, "wer": summary, "launches": launches,
+           "mean_si_snr_db": evals[-1]["mean_si_snr_db"],
+           "mean_si_snri_db": evals[-1]["mean_si_snri_db"],
+           "si_snr_gap_db": max(gaps)}
+    log(f"(d) tools: {json.dumps(rec)}")
+    if len(evals) != len(keys) + 1 or max(gaps) > EVAL_ATOL_DB:
+        raise AssertionError(f"(d) cli.evaluate against pit_si_snr_db: "
+                             f"{gaps} dB (atol {EVAL_ATOL_DB})")
+    return rec
+
+
+def export_serve_path(torch, dev, results, run, mix) -> dict:
+    """Phase 10: (a)-(b) serve_path, (c) import_path, (d) tools_path, in a
+    work directory removed at the end."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    try:
+        rec = {"serve": serve_path(torch, dev, results, run, mix, work)}
+        rec["import"] = import_path(torch, dev, mix, work)
+        rec["tools"] = tools_path(torch, dev, results, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2978,6 +3393,29 @@ def main() -> int:
           f"{rec9['g']['blstm']['unsharded_s']:.3f} s; {smi_line}",
           flush=True)
     phase("parallel", t0)
+
+    # ------------------------------------ 10. export, serve, import, tools
+    t0 = time.perf_counter()
+    rec10 = export_serve_path(torch, dev, results, run, mix)
+    print("export_serve " + json.dumps(rec10), flush=True)
+    sv, tl = rec10["serve"], rec10["tools"]
+    print(f"main_path export_serve: exported flagship "
+          f"{sv['conformer']['export_s']:.1f} s ({sv['conformer']['bytes']} "
+          f"bytes), blstm {sv['blstm']['export_s']:.1f} s "
+          f"({sv['blstm']['bytes']} bytes, K2 op nodes "
+          f"{len(sv['blstm']['port_ops'])}); served vs live session s: "
+          f"flagship {sv['conformer']['served_s_median']:.4f} vs "
+          f"{sv['conformer']['live_s_median']:.4f} (masks max abs "
+          f"{sv['conformer']['mask_max_abs']:.3e}), blstm "
+          f"{sv['blstm']['served_s_median']:.4f} vs "
+          f"{sv['blstm']['live_s_median']:.4f} (masks max abs "
+          f"{sv['blstm']['mask_max_abs']:.3e}), served blstm launches "
+          f"{sv['blstm']['launches']}; import masks max abs "
+          f"{rec10['import']['mask_max_abs']:.3e}; libricss recipe "
+          f"{tl['recipe_s']:.1f} s, stages {tl['stages_s']}, WER "
+          f"{tl['wer']['wer']}, SI-SNRi {tl['mean_si_snri_db']:.2f} dB; "
+          f"{smi_line}", flush=True)
+    phase("export, serve, import, tools", t0)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi_line, flush=True)

@@ -25,7 +25,9 @@ streams peak-normalised at the end.
         --out-dir out/ --streaming [--stream-mode hop] [--device cuda]
 
 ``--model BLSTM`` takes a BLSTM checkpoint written by ``css_tpu`` (the npz
-format); its conf's ``blstm_*`` and ``bf16`` keys build the model.
+format); its conf's ``blstm_*`` and ``bf16`` keys build the model. The
+config is read by ``utils/config.py`` (no PyYAML). The last log line
+gives the run's kernel launches and plain routes as JSON.
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ from css_tpu_torch.executor.pipeline import CssPipeline, write_streams
 from css_tpu_torch.executor.streaming import StreamingCssPipeline
 from css_tpu_torch.models import (MODELS, build_model,
                                   state_dict_from_checkpoint)
+from css_tpu_torch.ops import istft_cuda, lstm_cuda, stft_mag_cuda
 from css_tpu_torch.trainer.checkpoint import load_checkpoint
+from css_tpu_torch.utils.config import load_config
 
 log = logging.getLogger("css_tpu_torch.separate")
 
@@ -77,12 +81,11 @@ def load_model(checkpoint: str, name: str = "Conformer"):
 
 
 def main(argv=None):
-    import yaml  # only here: the port's other modules run without PyYAML
-
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True,
-                        help="pipeline YAML (configs/infer_1ch.yaml or "
-                             "configs/infer_7ch.yaml schema)")
+                        help="pipeline config (configs/infer_1ch.yaml or "
+                             "configs/infer_7ch.yaml schema; read by "
+                             "utils/config.py, no PyYAML)")
     parser.add_argument("--checkpoint", required=True)
     parser.add_argument("--model", default="Conformer", choices=sorted(MODELS))
     parser.add_argument("--corpus-dir", default=None)
@@ -119,8 +122,7 @@ def main(argv=None):
                         level=logging.INFO)
 
     device = resolve_device(args.device)
-    with open(args.config) as fh:
-        config = yaml.safe_load(fh)
+    config = load_config(args.config)
     model = load_model(args.checkpoint, args.model)
     pipe = CssPipeline(model, config, device=device)
     total_audio = 0.0
@@ -153,6 +155,10 @@ def main(argv=None):
     if total_audio:
         log.info("Processed %.1fs of audio in %.1fs (%.2fx realtime)",
                  total_audio, dt, total_audio / dt)
+    kernels = (stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused)
+    log.info("kernel launches %s", json.dumps({
+        "launches": {k.__name__: k.launches for k in kernels},
+        "plain_routes": {k.__name__: k.plain_routes for k in kernels}}))
 
 
 if __name__ == "__main__":

@@ -1,12 +1,18 @@
 """Chunked separator: long recording -> per-window TF masks.
 
-Port of ``css_tpu/executor/separator.py`` (no exported graph): the
-recording, (T,) or (C, T), is cut into sliding windows, the windows run
-through features + model in batches of ``batch_size`` (the last batch
-padded with zero windows and sliced back, so every forward has one
-shape), and the masks are clamped at 1. With ``merge`` (7ch) the DOA
-merge (``executor/doa.py``) kills the weaker of the two speaker masks in
-every window whose two DOAs coincide. Everything stays on ``device``.
+Port of ``css_tpu/executor/separator.py``: the recording, (T,) or
+(C, T), is cut into sliding windows, the windows run through features +
+model in batches of ``batch_size`` (the last batch padded with zero
+windows and sliced back, so every forward has one shape), and the masks
+are clamped at 1. With ``merge`` (7ch) the DOA merge
+(``executor/doa.py``) kills the weaker of the two speaker masks in every
+window whose two DOAs coincide. Everything stays on ``device``.
+
+``Separator(None, exported_path=...)`` serves a ``torch.export``
+artifact of the clamped forward (``cli/export.py``) in place of a live
+model; the features (K3) and the DOA merge stay outside it, as in the
+JAX package. The artifact takes one (batch, frames, features) shape: a
+``batch_size`` or window that gives another raises.
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ from css_tpu_torch.ops.features import FeatureExtractor
 class Separator:
     def __init__(
         self,
-        model: torch.nn.Module,
+        model: Optional[torch.nn.Module],
         *,
+        exported_path: Optional[str] = None,
         sr: int = 16000,
         eval_win: float = 2.4,
         eval_hop: float = 0.8,
@@ -45,8 +52,16 @@ class Separator:
             raise ValueError(
                 f"merge=true requires num_spk==2 (got {num_spk}); disable "
                 "the DOA merge for K-speaker separation")
+        if (model is None) == (exported_path is None):
+            raise ValueError("Separator serves a model or an exported "
+                             "artifact (exported_path=), exactly one")
         self.device = resolve_device(device)
         self.model = model
+        self.exported = None
+        if exported_path is not None:
+            from css_tpu_torch.cli.export import load_exported
+
+            self.exported = load_exported(exported_path)
         self.win = int(eval_win * sr) + EXTRA_SAMPLES
         self.hop = int(eval_hop * sr)
         self.batch_size = batch_size
@@ -69,8 +84,17 @@ class Separator:
             mag, feats, spec = self.features(wav_batch, return_spec=True)
         else:
             mag, feats = self.features(wav_batch)
-        _, masks = self.model(feats)
-        masks = torch.clamp(masks, max=1.0)
+        if self.exported is not None:
+            if tuple(feats.shape) != self.exported.input_shape:
+                raise ValueError(
+                    f"the exported forward takes features "
+                    f"{self.exported.input_shape} (batch, frames, bins), "
+                    f"this separator gives {tuple(feats.shape)}: export at "
+                    f"this batch_size and window")
+            masks = self.exported(feats)  # clamped at export
+        else:
+            _, masks = self.model(feats)
+            masks = torch.clamp(masks, max=1.0)
         kill = None
         if self.merge:
             kill, _ = self.steering.merge_decisions(

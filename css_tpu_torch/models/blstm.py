@@ -9,8 +9,11 @@ names follow the Flax modules, so ``params_from_jax`` is a renaming.
 Each LSTM direction computes its input projections for all frames as one
 product, ``xw = x @ W_ih^T + b`` in the compute dtype (the JAX package's
 order: the product, then the bias), and hands the recurrence to
-``ops.lstm_cuda.lstm_fused``: the K2 kernel on the card, its plain
-version on the CPU. Parameters stay float32; ``compute_dtype`` (bfloat16
+``ops.lstm_cuda.lstm_fused``, the registered op ``css_tpu_torch::
+lstm_fused``: the K2 kernel on the card, its plain version on the CPU; the
+offline forward, ``stream`` and sharded separation all call it, and a
+``torch.export`` of the eval forward keeps it as one node per (layer,
+direction). ``params_from_torch`` reads a reference torch state_dict. Parameters stay float32; ``compute_dtype`` (bfloat16
 when the checkpoint's conf says ``bf16``) is applied where the JAX package
 applies it, and LayerNorm normalises in float32 (``conformer.LayerNorm``).
 ``causal=True`` drops the backward direction and widens the forward LSTM
@@ -290,3 +293,33 @@ def init_params(seed: int, conf: Dict) -> Dict:
         params[f"encoders_{i}"] = layer
     params["linear"] = dense(hd, n_out)
     return params
+
+
+def params_from_torch(state_dict, num_layers: int = 3) -> Dict:
+    """A reference torch BLSTM state_dict (``blstm.embed``,
+    ``blstm.encoders.i.lstm.*_l0[_reverse]``, ``linear``) -> the JAX
+    package's {"params"} numpy layout, leaf for leaf what
+    ``css_tpu.models.blstm.params_from_torch`` gives (each direction's two
+    biases summed); load it with ``params_from_jax``."""
+    def t(name):
+        return np.asarray(state_dict[name].detach().cpu().numpy())
+
+    def dense(prefix):
+        return {"kernel": t(f"{prefix}.weight").T, "bias": t(f"{prefix}.bias")}
+
+    def ln(prefix):
+        return {"scale": t(f"{prefix}.weight"), "bias": t(f"{prefix}.bias")}
+
+    params = {"embed_linear": dense("blstm.embed.0"),
+              "embed_norm": ln("blstm.embed.1"),
+              "linear": dense("linear")}
+    for i in range(num_layers):
+        p = f"blstm.encoders.{i}"
+        layer = {"layer_norm": ln(f"{p}.layer_norm")}
+        for direction, suf in (("fwd", ""), ("bwd", "_reverse")):
+            layer[f"w_ih_{direction}"] = t(f"{p}.lstm.weight_ih_l0{suf}")
+            layer[f"w_hh_{direction}"] = t(f"{p}.lstm.weight_hh_l0{suf}")
+            layer[f"b_{direction}"] = (t(f"{p}.lstm.bias_ih_l0{suf}")
+                                       + t(f"{p}.lstm.bias_hh_l0{suf}"))
+        params[f"encoders_{i}"] = layer
+    return {"params": params}

@@ -619,3 +619,64 @@ def params_from_jax(params: Dict, batch_stats: Dict = None
         sd[key.rsplit(".", 1)[0] + "." + stat] = tensor(arr)
     return sd
 
+
+def params_from_torch(state_dict, num_blocks: int = 16) -> Dict:
+    """A reference torch Conformer state_dict (the reference's
+    ``css/models/conformer.py`` names) -> the JAX package's
+    {"params", "batch_stats"} numpy layout, leaf for leaf what
+    ``css_tpu.models.conformer.params_from_torch`` gives; load it with
+    ``params_from_jax``."""
+    def t(name):
+        return np.asarray(state_dict[name].detach().cpu().numpy())
+
+    def dense(prefix):
+        return {"kernel": t(f"{prefix}.weight").T, "bias": t(f"{prefix}.bias")}
+
+    def ln(prefix):
+        return {"scale": t(f"{prefix}.weight"), "bias": t(f"{prefix}.bias")}
+
+    def ffn(prefix):
+        return {"layer_norm": ln(f"{prefix}.layer_norm"),
+                "w1": dense(f"{prefix}.net.0"),
+                "w2": dense(f"{prefix}.net.3")}
+
+    params = {
+        "conformer": {
+            "embed_linear": dense("conformer.embed.0"),
+            "embed_norm": ln("conformer.embed.1"),
+            "pe_k": t("conformer.pos_emb.pe_k.weight"),
+        },
+        "linear": dense("linear"),
+    }
+    batch_stats = {"conformer": {}}
+    for i in range(num_blocks):
+        p = f"conformer.encoders.{i}"
+        params["conformer"][f"encoders_{i}"] = {
+            "feed_forward_in": ffn(f"{p}.feed_forward_in"),
+            "feed_forward_out": ffn(f"{p}.feed_forward_out"),
+            "self_attn": {
+                "layer_norm": ln(f"{p}.self_attn.layer_norm"),
+                "linear_q": dense(f"{p}.self_attn.linear_q"),
+                "linear_k": dense(f"{p}.self_attn.linear_k"),
+                "linear_v": dense(f"{p}.self_attn.linear_v"),
+                "linear_out": dense(f"{p}.self_attn.linear_out"),
+            },
+            "conv": {
+                "layer_norm": ln(f"{p}.conv.layer_norm"),
+                "pw1_w": t(f"{p}.conv.pw_conv_1.weight").reshape(2),
+                "pw1_b": t(f"{p}.conv.pw_conv_1.bias").reshape(2),
+                # torch depthwise (C, 1, K) -> the JAX layout (K, 1, C)
+                "dw_kernel": t(f"{p}.conv.dw_conv_1d.weight").transpose(
+                    2, 1, 0),
+                "dw_bias": t(f"{p}.conv.dw_conv_1d.bias"),
+                "bn": {"scale": t(f"{p}.conv.BN.weight"),
+                       "bias": t(f"{p}.conv.BN.bias")},
+                "pw2_w": t(f"{p}.conv.pw_conv_2.weight").reshape(1),
+                "pw2_b": t(f"{p}.conv.pw_conv_2.bias").reshape(1),
+            },
+            "layer_norm": ln(f"{p}.layer_norm"),
+        }
+        batch_stats["conformer"][f"encoders_{i}"] = {"conv": {"bn": {
+            "mean": t(f"{p}.conv.BN.running_mean"),
+            "var": t(f"{p}.conv.BN.running_var")}}}
+    return {"params": params, "batch_stats": batch_stats}

@@ -207,3 +207,51 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return sd
+
+
+def params_from_torch(state_dict, num_layers: int = 3, num_blocks: int = 8,
+                      norm: str = "gln") -> Dict:
+    """A reference torch ConvTasNet state_dict -> the JAX package's
+    {"params"} numpy layout, leaf for leaf what
+    ``css_tpu.models.conv_tasnet.params_from_torch`` gives, for either
+    block norm (``gln`` or ``cln``); load it with ``params_from_jax``."""
+    def t(name):
+        return np.asarray(state_dict[name].detach().cpu().numpy())
+
+    def dense_from_conv1x1(prefix):
+        # a 1x1 conv weight (O, I, 1) -> a dense kernel (I, O)
+        return {"kernel": t(f"{prefix}.weight")[:, :, 0].T,
+                "bias": t(f"{prefix}.bias")}
+
+    def norm_params(prefix, kind):
+        if kind == "cln":
+            return {"ln": {"scale": t(f"{prefix}.weight"),
+                           "bias": t(f"{prefix}.bias")}}
+        return {"scale": t(f"{prefix}.weight").reshape(-1),
+                "bias": t(f"{prefix}.bias").reshape(-1)}
+
+    params = {
+        # encoder conv (N, 1, L) -> (L, 1, N)
+        "encoder_kernel": t("encoder.weight").transpose(2, 1, 0),
+        "encoder_bias": t("encoder.bias"),
+        "layer_n_s": norm_params("LayerN_S", "cln"),
+        "bottleneck": dense_from_conv1x1("BottleN_S"),
+        "gen_masks": dense_from_conv1x1("gen_masks"),
+        # decoder ConvTranspose1d weight (N, 1, L) -> (L, N, 1)
+        "decoder_kernel": t("decoder.weight").transpose(2, 0, 1),
+        "decoder_bias": t("decoder.bias"),
+    }
+    for r in range(num_layers):
+        for b in range(num_blocks):
+            p = f"separation.{r}.{b}"
+            params[f"separation_{r}_{b}"] = {
+                "conv1x1": dense_from_conv1x1(f"{p}.conv1x1"),
+                "prelu1_a": t(f"{p}.PReLU_1.weight"),
+                "norm_1": norm_params(f"{p}.norm_1", norm),
+                "dw_kernel": t(f"{p}.dwconv.weight").transpose(2, 1, 0),
+                "dw_bias": t(f"{p}.dwconv.bias"),
+                "prelu2_a": t(f"{p}.PReLU_2.weight"),
+                "norm_2": norm_params(f"{p}.norm_2", norm),
+                "sc_conv": dense_from_conv1x1(f"{p}.Sc_conv"),
+            }
+    return {"params": params}

@@ -29,18 +29,23 @@ steps; see the source.
 
 The launch geometry is fixed for the H100: at most MAX_BLOCKS blocks in
 clusters of 8, one block per SM (5 units a block at hidden 512, 9 at
-1024). ``lstm_fused(xw, w_hh, hidden)`` on CPU tensors returns the plain
-version. On CUDA tensors it launches the kernel, or raises, except on one
-route, decided from the hidden size and dtype alone before any launch and
-counted in ``lstm_fused.plain_routes``: **a hidden size whose W_hh slice
-does not fit in a block's shared memory** (``lstm_plan`` returns None:
-from 1193 units in float32 and 1441 in bf16) runs the plain version on
-the card, as the reference runs shapes its kernel does not tile on XLA.
+1024). Every call of ``lstm_fused(xw, w_hh, hidden)`` goes through the
+registered operator ``css_tpu_torch::lstm_fused`` (``lstm_op``), so
+``torch.export`` keeps K2 as one node and an exported BLSTM launches it
+when served (``cli/export.py``); only the measurement route ``phases=``
+launches directly. On CPU tensors the op runs the plain version. On CUDA
+tensors it launches the kernel, or raises, except on one route, decided
+from the hidden size and dtype alone before any launch and counted in
+``lstm_fused.plain_routes``: **a hidden size whose W_hh slice does not
+fit in a block's shared memory** (``lstm_plan`` returns None: from 1193
+units in float32 and 1441 in bf16) runs the plain version on the card,
+as the reference runs shapes its kernel does not tile on XLA.
 A card that cannot hold all of a plan's clusters at once raises a
 ValueError that names the shape (the kernel's barrier would wait for a
 cluster that never starts). A batch above ``MAX_BATCH`` rows is split
 across launches (batch entries are independent, so this is exact).
-``lstm_fused.launches`` counts kernel launches.
+``lstm_fused.launches`` counts kernel launches, and the op's CUDA kernel
+counts them, so a served artifact's launches count as the live model's.
 
 Streaming (hop-granular, a causal LSTM over chunks of a few frames) hands
 the recurrence a carried state: ``state=(h0, c0)``, h0 (B, h) in xw's
@@ -55,7 +60,7 @@ dtype; in float32 the two are the same function.)
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -152,16 +157,13 @@ def _initial_state(xw: torch.Tensor, hidden: int, reverse: bool, state,
             c0.to(device=xw.device, dtype=torch.float32).contiguous())
 
 
-def lstm_plain(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
-               reverse: bool = False, state=None, return_state: bool = False):
-    """The plain PyTorch version: a loop over time with the TPU kernel's
-    numerics. xw (B, T, 4h), w_hh (h, 4h) -> hs (B, T, h) in xw's dtype;
-    with ``return_state`` also the final (h, c float32). ``state`` is the
-    initial (h0, c0), zeros without it."""
+def _scan(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int, reverse: bool,
+          state) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain loop from ``state`` (as ``_initial_state`` gives it, or
+    None for zeros) -> (hs, the last step's h, its c float32)."""
     b, t, _ = xw.shape
     w = w_hh.float()
-    h, c = (_initial_state(xw, hidden, reverse, state, return_state)
-            or _zero_state(xw, hidden))
+    h, c = state or _zero_state(xw, hidden)
     out = torch.empty((b, t, hidden), dtype=xw.dtype, device=xw.device)
     for s in range(t):
         ti = t - 1 - s if reverse else s
@@ -170,6 +172,17 @@ def lstm_plain(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = (torch.sigmoid(o) * torch.tanh(c)).to(xw.dtype)
         out[:, ti] = h
+    return out, h, c
+
+
+def lstm_plain(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
+               reverse: bool = False, state=None, return_state: bool = False):
+    """The plain PyTorch version: a loop over time with the TPU kernel's
+    numerics. xw (B, T, 4h), w_hh (h, 4h) -> hs (B, T, h) in xw's dtype;
+    with ``return_state`` also the final (h, c float32). ``state`` is the
+    initial (h0, c0), zeros without it."""
+    out, h, c = _scan(xw, w_hh, hidden, reverse, _initial_state(
+        xw, hidden, reverse, state, return_state))
     return (out, (h, c)) if return_state else out
 
 
@@ -189,38 +202,26 @@ def _check(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int) -> None:
                          f"{w_hh.device}")
 
 
-def lstm_fused(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
-               reverse: bool = False, state=None, return_state: bool = False,
-               phases: Optional[torch.Tensor] = None):
-    """xw (B, T, 4h) input projections plus biases, w_hh (h, 4h) ->
-    hs (B, T, h) in xw's dtype (float32 or bfloat16); with
-    ``return_state`` the pair (hs, (h_T, c_T float32)). ``state`` is the
-    initial (h0, c0) of a stream's chunk (forward only), zeros without it.
-
-    ``phases``, for measurement only: a CUDA int64 tensor (blocks, 4) that
-    the kernel fills with each block's clock64() cycles of barrier wait,
-    staging, product, and the rest (partial sums, gates, stores, arrival)
-    over steps 1..T-1 (one launch, no state)."""
-    if xw.device.type == "cpu":
-        return lstm_plain(xw, w_hh, hidden, reverse, state, return_state)
+def _launch(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
+            reverse: bool, state, phases: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 on CUDA tensors -> (hs, h_T, c_T float32), each a tensor of its
+    own; ``state`` as ``_initial_state`` gives it. Counts every launch,
+    and the plain route, in ``lstm_fused``'s counters."""
     _check(xw, w_hh, hidden)
-    if xw.device.type != "cuda":
-        raise ValueError(f"lstm_fused: unsupported device {xw.device}")
     b, t, _ = xw.shape
-    state = _initial_state(xw, hidden, reverse, state, return_state)
     carried = state is not None
     plan = lstm_plan(hidden, xw.element_size())
     if plan is None:
-        lstm_fused.plain_routes += 1
-        return lstm_plain(xw, w_hh, hidden, reverse, state, return_state)
+        _COUNTS.plain_routes += 1
+        out, h, c = _scan(xw, w_hh, hidden, reverse, state)
+        return out, h.clone(), c.clone()
     out = torch.empty((b, t, hidden), dtype=xw.dtype, device=xw.device)
     if b == 0 or t == 0:
-        if not return_state:
-            return out
-        return out, state or _zero_state(xw, hidden)
+        h, c = state or _zero_state(xw, hidden)
+        return out, h.clone(), c.clone()
     h0, c0 = state if carried else (None, None)
-    c_out = (torch.empty((b, hidden), dtype=torch.float32, device=xw.device)
-             if return_state else None)
+    c_out = torch.empty((b, hidden), dtype=torch.float32, device=xw.device)
     parts = _build.split_rows(b, MAX_BATCH)
     if phases is not None and (len(parts) != 1 or phases.dtype != torch.int64
                                or phases.shape != (plan.blocks, 4)
@@ -244,10 +245,9 @@ def lstm_fused(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
             xw[lo].data_ptr(), w_hh.data_ptr(), out[lo].data_ptr(),
             slots.data_ptr(), counters[i].data_ptr(),
             None if phases is None else phases.data_ptr(),
-            c0[lo].data_ptr() if carried else None,
-            None if c_out is None else c_out[lo].data_ptr(), int(carried),
-            hi - lo, t, hidden, plan.hpad, plan.units, plan.wstride,
-            plan.chunk, plan.hstride, plan.blocks, int(reverse),
+            c0[lo].data_ptr() if carried else None, c_out[lo].data_ptr(),
+            int(carried), hi - lo, t, hidden, plan.hpad, plan.units,
+            plan.wstride, plan.chunk, plan.hstride, plan.blocks, int(reverse),
             int(xw.dtype == torch.bfloat16), xw.device.index or 0, stream)
         if err == SHAPE_REFUSED:
             raise ValueError(f"lstm kernel: xw {tuple(xw.shape)} (batch "
@@ -261,8 +261,79 @@ def lstm_fused(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
                              f"of {CLUSTER} cannot all be resident at once "
                              f"on this card")
         _build.check(err, "lstm_fused")
-        lstm_fused.launches += 1
-    return (out, (out[:, -1].contiguous(), c_out)) if return_state else out
+        _COUNTS.launches += 1
+    return out, out[:, 0 if reverse else -1].clone(), c_out
+
+
+# K2 as a registered operator, so that torch.export keeps it as one node of
+# the graph (an exported BLSTM serves with its kernel): the CPU kernel is
+# the plain loop, the CUDA kernel the launch above, the fake kernel gives
+# the shapes for tracing. No autograd formula: training runs
+# models.blstm.lstm_scan(differentiable=True), a loop autograd records.
+@torch.library.custom_op("css_tpu_torch::lstm_fused", mutates_args=(),
+                         device_types="cpu")
+def lstm_op(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
+            reverse: bool, h0: Optional[torch.Tensor] = None,
+            c0: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xw (B, T, 4h), w_hh (h, 4h), the initial (h0, c0) or None ->
+    (hs (B, T, h) in xw's dtype, the last step's h (B, h), its c (B, h)
+    float32)."""
+    state = _initial_state(xw, hidden, reverse, _pair(h0, c0), False)
+    out, h, c = _scan(xw, w_hh, hidden, reverse, state)
+    return out, h.clone(), c.clone()
+
+
+@lstm_op.register_kernel("cuda")
+def _lstm_op_cuda(xw, w_hh, hidden, reverse, h0=None, c0=None):
+    return _launch(xw, w_hh, hidden, reverse,
+                   _initial_state(xw, hidden, reverse, _pair(h0, c0), False))
+
+
+@lstm_op.register_fake
+def _lstm_op_fake(xw, w_hh, hidden, reverse, h0=None, c0=None):
+    b, t, _ = xw.shape
+    return (xw.new_empty((b, t, hidden)), xw.new_empty((b, hidden)),
+            xw.new_empty((b, hidden), dtype=torch.float32))
+
+
+def _pair(h0, c0):
+    if (h0 is None) != (c0 is None):
+        raise ValueError("lstm state: h0 and c0 come together")
+    return None if h0 is None else (h0, c0)
+
+
+def lstm_fused(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
+               reverse: bool = False, state=None, return_state: bool = False,
+               phases: Optional[torch.Tensor] = None):
+    """xw (B, T, 4h) input projections plus biases, w_hh (h, 4h) ->
+    hs (B, T, h) in xw's dtype (float32 or bfloat16); with
+    ``return_state`` the pair (hs, (h_T, c_T float32)). ``state`` is the
+    initial (h0, c0) of a stream's chunk (forward only), zeros without it.
+    Every call goes through the registered op ``lstm_op``: K2 on CUDA
+    tensors, the plain loop on CPU tensors.
+
+    ``phases``, for measurement only: a CUDA int64 tensor (blocks, 4) that
+    the kernel fills with each block's clock64() cycles of barrier wait,
+    staging, product, and the rest (partial sums, gates, stores, arrival)
+    over steps 1..T-1 (one launch, no state). This route launches K2
+    directly, outside the op."""
+    if reverse and (state is not None or return_state):
+        raise ValueError("lstm: a reverse scan has no causal carry to chain "
+                         "(state and return_state are forward only)")
+    if xw.device.type != "cpu":
+        # the kernel's operand checks, before the op looks for a kernel
+        _check(xw, w_hh, hidden)
+        if xw.device.type != "cuda":
+            raise ValueError(f"lstm_fused: unsupported device {xw.device}")
+    if phases is not None:
+        if xw.device.type != "cuda":
+            raise ValueError("lstm phases: the kernel's record needs CUDA "
+                             "tensors")
+        return _launch(xw, w_hh, hidden, reverse, None, phases)[0]
+    h0, c0 = state if state is not None else (None, None)
+    out, h_t, c_t = lstm_op(xw, w_hh, hidden, reverse, h0, c0)
+    return (out, (h_t, c_t)) if return_state else out
 
 
 def phase_split(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
@@ -285,3 +356,6 @@ def phase_split(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
 
 lstm_fused.launches = 0
 lstm_fused.plain_routes = 0
+# the counters' owner, kept apart from the module attribute that a
+# measurement may swap for lstm_plain
+_COUNTS = lstm_fused

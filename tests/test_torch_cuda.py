@@ -536,3 +536,69 @@ def test_dp_step_at_world_2_on_the_card(card, tmp_path):
                   for k, v in g1.items())
         den = sum(float(np.sum(v ** 2)) for v in g1.values())
         assert np.sqrt(num / den) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["fwd", "rev", "state", "bf16"])
+def test_lstm_op_cuda_kernel_passes_opcheck(card, case):
+    """torch.library.opcheck on K2's registered op with its CUDA kernel:
+    schema, fake kernel, no aliasing, dispatch; every call launches."""
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    xw, w_hh = _lstm_inputs(3, 5, 64, dtype, 11, card)
+    h0 = c0 = None
+    if case == "state":
+        h0, c0 = _carry(3, 64, dtype, 12, card)
+    before, routes = (lstm_cuda.lstm_fused.launches,
+                      lstm_cuda.lstm_fused.plain_routes)
+    torch.library.opcheck(lstm_cuda.lstm_op,
+                          (xw, w_hh, 64, case == "rev", h0, c0))
+    assert lstm_cuda.lstm_fused.launches > before
+    assert lstm_cuda.lstm_fused.plain_routes == routes
+
+
+def test_exported_blstm_launches_k2_on_the_card(card, tmp_path):
+    """A small BLSTM exported with torch.export and served from the
+    artifact on the card: one K2 launch per (layer, direction), the live
+    forward's masks (the same kernels on the same inputs)."""
+    from css_tpu_torch.cli import export
+    from css_tpu_torch.models import blstm
+
+    conf = {"blstm_hdim": 128, "blstm_num_layers": 2}
+    model = blstm.BLSTM.build_model(conf)
+    model.load_state_dict(blstm.params_from_jax(blstm.init_params(7, conf)))
+    program = export.export_forward(model, 4, 150, 257, card)
+    torch.export.save(program, tmp_path / "b.pt2")
+    served = export.load_exported(tmp_path / "b.pt2")
+    f = _signal((4, 150, 257), 8, card).abs()
+    before = lstm_cuda.lstm_fused.launches
+    with torch.no_grad():
+        got = served(f)
+        torch.cuda.synchronize()
+        assert lstm_cuda.lstm_fused.launches == before + 4
+        want = torch.clamp(model(f)[1], max=1.0)
+    assert lstm_cuda.lstm_fused.launches == before + 8
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_hop_stream_launches_k2_three_times_a_chunk(card):
+    """The causal BLSTM's carried-state stream, 3 layers: each 8-frame
+    chunk launches K2 once a layer through the op, and the chained chunks
+    give the offline causal forward's masks (tests/test_hop_streaming.py's
+    bounds)."""
+    from css_tpu_torch.models import blstm
+
+    conf = {"blstm_hdim": 128, "blstm_num_layers": 3, "blstm_causal": True}
+    model = blstm.BLSTM.build_model(conf)
+    model.load_state_dict(blstm.params_from_jax(blstm.init_params(9, conf)))
+    model = model.to(card).eval()
+    f = _signal((1, 40, 257), 10, card).abs()
+    carry = model.stream_init(1)
+    chunks = []
+    for lo in range(0, 40, 8):
+        before = lstm_cuda.lstm_fused.launches
+        masks, carry = model.stream(f[:, lo:lo + 8], carry)
+        assert lstm_cuda.lstm_fused.launches == before + 3
+        chunks.append(masks)
+    with torch.no_grad():
+        want = model(f)[1]
+    torch.testing.assert_close(torch.cat(chunks, dim=1), want, atol=2e-5,
+                               rtol=2e-4)
