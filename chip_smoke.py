@@ -177,6 +177,36 @@ Phases, each timed on its own line:
            finite corpus WER, each separation's logged launches (K3 and K1,
            no plain route); then ``cli.evaluate`` on the streams against
            an in-process SI-SNR of the same files.
+ 11. Programs: on the card the separator forward, the hop-mode step and
+     the train and eval steps run as captured CUDA graphs
+     (``css_tpu_torch/utils/programs.py``), in phases 3-10 too, whose
+     gates hold through the replays (the wrappers' counters add each
+     replay's launches). Here each is held against the same step
+     dispatched eagerly (``programs.eager()``):
+       (a) the separator on the session: the flagship in bf16 and float32,
+           the full-width BLSTM, the served BLSTM artifact, the 7ch
+           checkpoint: masks and magnitudes (PROG_ATOL), launches through
+           replays equal to the eager calls' (K3 3, K2 18), seconds a
+           session (median of PROG_REPS, replays under torch's sync debug
+           mode "error"), captures, capture seconds, pool bytes;
+       (b) streaming: window mode (flagship, float32), per-push median and
+           p90; hop mode, the causal BLSTM (K2 3 a chunk) and the causal
+           Conformer of phase 8, per-chunk times; streams against each
+           other within phase 8's bounds;
+       (c) the train step at 32 x 4.0 s in float32 and bf16 from the
+           flagship's weights at dropout 0, 2 * PROG_GROUP batches grouped
+           PROG_GROUP at a time, twice over: loss, pre-clip norm and
+           parameters after each group against the eager steps
+           (PROG_RTOL), K3 once a step through replays, replays with no
+           host synchronisation (sync debug mode "error"); a group of NaN
+           batches leaves the state bit-equal and advances the step
+           counter, a NaN batch mid-group matches eager steps without it;
+           step ms and device idle share (torch.profiler) program against
+           eager; at dropout 0 and lr 0 two replays give one loss, at the
+           recipe's dropout three replays three;
+       (d) ``cli.train`` with --steps-per-dispatch PROG_GROUP on one
+           window bucket: finite losses, K3 once a train and validation
+           batch, a replayed group and eval step.
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and last the result line ``{"ok": true, "device": {...}}``. Progress goes
 to stderr. Any failed check raises, and the exit code is then non-zero;
@@ -339,7 +369,7 @@ RECIPE_ARGS = ["--synthetic-data", "--synthetic-rirs", "--batch-size", "64",
                "--weight-decay", "1e-2", "--grad-thresh", "5.0",
                "--warmup", "20000", "--decay", "1e-5",
                "--mse-noise-weight", "0.3", "--bf16", "--keep-every", "20",
-               "--keep-last", "2"]
+               "--keep-last", "2", "--steps-per-dispatch", "4"]
 RECIPE_EPOCHS, RECIPE_BATCHES, RECIPE_VALID = 2, 4, 2
 # The 7ch train path: the committed 7ch checkpoint at full width (1799
 # inputs: channel 0's 257 bins and 6 IPD pairs) on batches of 32 x 4.0 s
@@ -512,6 +542,18 @@ TOOLS_SESSIONS, TOOLS_SESSION_SEC = 2, 30.0
 TOOLS_SEED = 20261023
 EVAL_ATOL_DB = 1e-3
 TOOLS_TIMEOUT_S = 600
+# Phase 11, the programs: each step as a captured CUDA graph against the
+# same step dispatched eagerly (``utils/programs.py``'s ``eager()``). A
+# replay launches the kernels the eager call launches, in its order and
+# on its shapes, so the outputs should be bit-equal; where they are not,
+# float32 masks (in [0, 1]) and magnitudes within PROG_ATOL absolute, and
+# train steps' loss, pre-clip norm and parameters within PROG_RTOL
+# relative (L2), the gap printed. PROG_REPS sessions each way; the train
+# step at 32 x 4.0 s from the flagship's weights at dropout 0, on
+# 2 * PROG_GROUP batches from PROG_TRAIN_SEED, grouped PROG_GROUP at a
+# time (the CLI's default --steps-per-dispatch) at PROG_LR.
+PROG_ATOL, PROG_RTOL, PROG_REPS = 1e-6, 1e-6, 5
+PROG_TRAIN_SEED, PROG_GROUP, PROG_LR = 20261024, 4, 1e-4
 
 
 def log(*args):
@@ -2803,6 +2845,489 @@ def export_serve_path(torch, dev, results, run, mix) -> dict:
     return rec
 
 
+# ------------------------------------------------------------ 11. programs
+@contextlib.contextmanager
+def sync_errors(torch):
+    """An implicit host synchronisation inside raises (torch's sync debug
+    mode at "error")."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def reset_counts(counters):
+    for c in counters:
+        c.launches = c.plain_routes = 0
+
+
+def read_counts(counters):
+    return ({c.__name__: c.launches for c in counters},
+            {c.__name__: c.plain_routes for c in counters})
+
+
+def program_session(torch, counters, sep, rec, label, expect):
+    """Phase 11 (a) for one separator: the session's windows through
+    ``separate`` as programs (a cold call, which captures, then PROG_REPS
+    replayed calls under sync_errors) and eagerly (``programs.eager()``,
+    PROG_REPS calls): masks and magnitudes against each other, launches
+    through replays against the eager calls' and ``expect``, seconds per
+    session, and the program's captures, capture seconds and pool bytes."""
+    from css_tpu_torch.executor.windowing import pad_for_windows
+    from css_tpu_torch.utils import programs
+
+    wav = pad_for_windows(torch.as_tensor(rec, device=sep.device), sep.win,
+                          sep.hop)
+
+    def session(eager: bool, guard: bool):
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with (programs.eager() if eager else
+              sync_errors(torch) if guard else contextlib.nullcontext()):
+            out = sep.separate(wav)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, read_counts(counters)
+
+    _, cold, _ = session(False, False)
+    prog = [session(False, True) for _ in range(PROG_REPS)]
+    eager = [session(True, False) for _ in range(PROG_REPS)]
+    (m_p, g_p), _, (counts_p, routes_p) = prog[-1]
+    (m_e, g_e), _, (counts_e, routes_e) = eager[-1]
+    mask_err = float((m_p.float() - m_e.float()).abs().max())
+    mag_err = float((g_p - g_e).abs().max())
+    summary = sep.program.summary()
+    out = {"label": label, "mask_max_abs": mask_err,
+           "mask_bit_equal": bool(torch.equal(m_p, m_e)),
+           "mag_max_abs": mag_err, "mag_bit_equal": bool(torch.equal(g_p,
+                                                                     g_e)),
+           "launches_program": counts_p, "launches_eager": counts_e,
+           "cold_s": cold,
+           "program_s_median": float(np.median([p[1] for p in prog])),
+           "eager_s_median": float(np.median([e[1] for e in eager])),
+           "captures": summary["captures"],
+           "capture_s": summary["capture_s"],
+           "pool_bytes": summary["pool_bytes"],
+           "replays": summary["replays"]}
+    log(f"programs separator {label}: {json.dumps(out)}")
+    if (counts_p != counts_e or counts_p != expect or any(routes_p.values())
+            or any(routes_e.values())):
+        raise AssertionError(f"programs {label}: launches through replays "
+                             f"{counts_p} (plain routes {routes_p}), eager "
+                             f"{counts_e} ({routes_e}), expected {expect}")
+    if (mask_err > PROG_ATOL or mag_err > PROG_ATOL
+            or not bool(m_p.isfinite().all()) or summary["captures"] < 1):
+        raise AssertionError(f"programs {label}: program against eager "
+                             f"masks {mask_err:.3e}, magnitudes "
+                             f"{mag_err:.3e} (atol {PROG_ATOL}), captures "
+                             f"{summary['captures']}")
+    return out
+
+
+def programs_separator(torch, dev, counters, mix, srcs, work) -> dict:
+    """Phase 11 (a): the flagship in bf16 and float32, the full-width BLSTM
+    (float32), the 7ch checkpoint (bf16) and the served BLSTM artifact."""
+    from css_tpu_torch.cli.separate import load_model
+    from css_tpu_torch.executor.pipeline import CssPipeline
+    from css_tpu_torch.models import blstm
+
+    n_batches = -(-main_shapes()["n_windows"] // main_shapes()["batch"])
+    base = {"stft_mag": n_batches, "istft": 0, "lstm_fused": 0}
+    out = {}
+    model = load_model(CHECKPOINT)
+    sep = CssPipeline(model, CONFIG, device=dev).separator
+    out["flagship_bf16"] = program_session(torch, counters, sep, mix,
+                                           "flagship bf16", base)
+    model.compute_dtype = torch.float32
+    out["flagship_float32"] = program_session(torch, counters, sep, mix,
+                                              "flagship float32", base)
+    del model, sep
+    conf = {}  # build_model's defaults: hidden 1024, 3 layers, float32
+    model = blstm.BLSTM.build_model(conf)
+    model.load_state_dict(blstm.params_from_jax(
+        blstm.init_params(BLSTM_SEED, conf)))
+    sep = CssPipeline(model, CONFIG, device=dev).separator
+    k2 = dict(base, lstm_fused=n_batches * 2 * len(model.encoders))
+    out["blstm_float32"] = program_session(torch, counters, sep, mix,
+                                           "blstm float32", k2)
+    path = work / "blstm_programs.pt2"
+    export_artifact(torch, model.to(dev).eval(), dev, path)
+    del sep
+    served = served_separator(path, dev)
+    out["served_blstm"] = program_session(torch, counters, served, mix,
+                                          "served blstm artifact", k2)
+    del model, served
+    torch.cuda.empty_cache()
+    model = load_model(CHECKPOINT_7CH)
+    sep = CssPipeline(model, CONFIG_7CH, device=dev).separator
+    out["7ch_bf16"] = program_session(torch, counters, sep,
+                                      session_7ch(srcs), "7ch bf16", base)
+    del model, sep
+    torch.cuda.empty_cache()
+    return out
+
+
+def programs_streaming(torch, dev, counters, mix) -> dict:
+    """Phase 11 (b): window mode (the flagship, float32) and hop mode (the
+    causal BLSTM and the causal Conformer of phase 8), each run with its
+    programs and eagerly (``programs.eager()``): per-push and per-chunk
+    wall times, and the streams against each other."""
+    from css_tpu_torch.cli.separate import load_model
+    from css_tpu_torch.executor.hop_streaming import HopStreamingPipeline
+    from css_tpu_torch.executor.streaming import StreamingCssPipeline
+    from css_tpu_torch.models import (blstm, build_model,
+                                      state_dict_from_checkpoint)
+    from css_tpu_torch.trainer.checkpoint import load_checkpoint
+    from css_tpu_torch.utils import programs
+
+    n_windows = main_shapes()["n_windows"]
+    hop = CONFIG["separation"]["frame_shift"]
+    out = {}
+    model = load_model(CHECKPOINT)
+    model.compute_dtype = torch.float32
+    expect = {"stft_mag": n_windows, "istft": n_windows, "lstm_fused": 0}
+    runs = {}
+    for mode in ("program", "eager"):
+        pipe = StreamingCssPipeline(model, CONFIG, device=dev)
+        with (programs.eager() if mode == "eager"
+              else contextlib.nullcontext()):
+            runs[mode] = stream_window_run(torch, pipe, mix,
+                                           f"programs window {mode}",
+                                           counters, expect)
+        if mode == "program":
+            runs["summary"] = pipe.separator.program.summary()
+    err = max(float(np.abs(a - b).max()) for a, b in
+              zip(runs["program"][0], runs["eager"][0]))
+    if err > PIPE_ATOL or runs["summary"]["captures"] < 1:
+        raise AssertionError(f"programs window stream against eager: max "
+                             f"abs {err:.3e} (atol {PIPE_ATOL}), captures "
+                             f"{runs['summary']['captures']}")
+    out["window"] = {
+        "program_push_s_median": runs["program"][1]["push_s_median"],
+        "program_push_s_p90": runs["program"][1]["push_s_p90"],
+        "eager_push_s_median": runs["eager"][1]["push_s_median"],
+        "eager_push_s_p90": runs["eager"][1]["push_s_p90"],
+        "streams_max_abs": err, "program": runs["summary"]}
+    del model
+    torch.cuda.empty_cache()
+
+    wav = mix[: int(HOP_SEC * CONFIG["sampling_rate"])]
+    conf = {"blstm_hdim": 1024, "blstm_num_layers": 3, "blstm_causal": True}
+    model = blstm.BLSTM.build_model(conf)
+    model.load_state_dict(blstm.params_from_jax(
+        blstm.init_params(HOP_SEED, conf)))
+    ckpt = load_checkpoint(CHECKPOINT)
+    causal = build_model("Conformer", dict(
+        ckpt.get("conf", {}), conformer_causal=True,
+        conformer_left_context=HOP_LEFT_CONTEXT))
+    causal.load_state_dict(state_dict_from_checkpoint("Conformer", ckpt))
+    causal.compute_dtype = torch.float32
+    for name, net, k2 in (("hop_blstm", model, len(model.encoders)),
+                          ("hop_conformer", causal, 0)):
+        runs = {}
+        for mode in ("program", "eager"):
+            pipe = HopStreamingPipeline(net, CONFIG, chunk_frames=HOP_CHUNK,
+                                        device=dev)
+            steps, step = [0], pipe._step
+
+            def counted_step(frames, step=step, steps=steps):
+                steps[0] += 1
+                return step(frames)
+
+            pipe._step = counted_step
+            reset_counts(counters)
+            with (programs.eager() if mode == "eager"
+                  else contextlib.nullcontext()):
+                full, chunk_s = hop_run(torch, pipe, wav, [HOP_CHUNK * hop])
+            counts, routes = read_counts(counters)
+            want = {"stft_mag": 0, "istft": 0, "lstm_fused": k2 * steps[0]}
+            if counts != want or any(routes.values()):
+                raise AssertionError(f"programs {name} {mode}: launches "
+                                     f"{counts}, plain routes {routes}, "
+                                     f"expected {want}")
+            runs[mode] = (full, chunk_s, counts)
+            if mode == "program":
+                runs["summary"] = pipe.program.summary()
+        diff = np.abs(runs["program"][0] - runs["eager"][0])
+        bad = diff > HOP_PUSH_ATOL + HOP_PUSH_RTOL * np.abs(runs["eager"][0])
+        if bad.any() or runs["summary"]["captures"] < 1:
+            raise AssertionError(f"programs {name}: streams against eager "
+                                 f"{diff.max():.3e} (phase 8's push-size "
+                                 f"bound), captures "
+                                 f"{runs['summary']['captures']}")
+        out[name] = {
+            "program_chunk_s_median": float(np.median(runs["program"][1])),
+            "program_chunk_s_p90": float(np.percentile(runs["program"][1],
+                                                       90)),
+            "eager_chunk_s_median": float(np.median(runs["eager"][1])),
+            "eager_chunk_s_p90": float(np.percentile(runs["eager"][1], 90)),
+            "streams_max_abs": float(diff.max()),
+            "k2_per_chunk": k2, "launches": runs["program"][2],
+            "program": runs["summary"]}
+    del model, causal
+    torch.cuda.empty_cache()
+    log(f"programs streaming: {json.dumps(out)}")
+    return out
+
+
+def idle_share(torch, fn):
+    """fn() once under torch.profiler: 1 - the card's kernel time (the sum
+    of its kernels on one stream) over the call's wall time, and both
+    times in ms; None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy_us = sum(getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0)
+                  for e in prof.key_averages())
+    if busy_us <= 0:
+        log("idle_share: torch.profiler recorded no device time")
+        return None
+    return {"idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_ms": busy_us / 1e3, "wall_ms": wall * 1e3}
+
+
+def flat_params(torch, trainer):
+    return torch.cat([p.detach().reshape(-1).float()
+                      for p in trainer.params])
+
+
+def programs_train_dtype(torch, dev, counters, batches, nan_batch, flagship,
+                         dtype_name) -> dict:
+    """Phase 11 (c) in one compute dtype, from the flagship's weights at
+    dropout 0: the groups of ``batches`` (PROG_GROUP each, twice over) as
+    programs and eagerly from one state; a NaN batch mid-group; the step's
+    times and idle shares; K3 once a step through replays."""
+    from css_tpu_torch.trainer.lr_schedule import LRSchedule
+    from css_tpu_torch.utils import programs
+
+    conf = dict(PAR_CONF, bf16=dtype_name == "bf16")
+    trainer = make_trainer(torch, "Conformer", conf, PROG_LR, dev)
+    trainer.model.load_state_dict(flagship)
+    state0 = trainer.state()
+    groups = [batches[i:i + PROG_GROUP]
+              for i in range(0, len(batches), PROG_GROUP)] * 2
+
+    def run(eager: bool):
+        trainer.load_state(state0)
+        trace = []
+        for i, group in enumerate(groups):
+            stacked = trainer._stack_group(group)
+            reset_counts(counters)
+            replay = not eager and i >= 2  # the 1st eager, the 2nd captures
+            with (programs.eager() if eager else
+                  sync_errors(torch) if replay else
+                  contextlib.nullcontext()):
+                m = trainer.train_group(stacked)
+            counts, _ = read_counts(counters)
+            trace.append((m["loss"].clone(), m["grad_norm"].clone(),
+                          flat_params(torch, trainer), counts))
+        return trace
+
+    prog, eager = run(False), run(True)
+    rel = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0}
+    bit_equal = True
+    for (lp, np_, pp, cp), (le, ne, pe, ce) in zip(prog, eager):
+        for key, a, b in (("loss", lp, le), ("grad_norm", np_, ne),
+                          ("params", pp, pe)):
+            rel[key] = max(rel[key], float((a - b).norm() / b.norm()))
+            bit_equal &= bool(torch.equal(a, b))
+        if cp["stft_mag"] != PROG_GROUP or ce["stft_mag"] != PROG_GROUP:
+            raise AssertionError(f"programs train {dtype_name}: K3 "
+                                 f"launches a group {cp} / {ce}, expected "
+                                 f"{PROG_GROUP}")
+    if max(rel.values()) > PROG_RTOL:
+        raise AssertionError(f"programs train {dtype_name}: program against "
+                             f"eager {rel} (rtol {PROG_RTOL})")
+
+    # NaN batches on the card, in replays: a group of NaN batches leaves
+    # the state bit-equal and advances the step counter; a NaN batch
+    # mid-group, against eager steps on the group without it
+    from css_tpu_torch.trainer.checkpoint import tree_leaves
+
+    def leaves(st):
+        return (tree_leaves(st.params) + tree_leaves(st.batch_stats)
+                + list(st.opt_state))
+
+    state1 = trainer.state()
+    with sync_errors(torch):
+        m = trainer.train_group(trainer._stack_group([nan_batch]
+                                                     * PROG_GROUP))
+    after = trainer.state()
+    all_nan = {"finite": [bool(f) for f in m["finite"]],
+               "state_bit_equal": all(np.array_equal(p, q) for p, q in zip(
+                   leaves(after), leaves(state1))),
+               "steps": after.step - state1.step}
+    bad = list(batches[:PROG_GROUP])
+    bad[2] = nan_batch
+    state1 = after
+    with sync_errors(torch):
+        m = trainer.train_group(trainer._stack_group(bad))
+    after = trainer.state()
+    finite = [bool(f) for f in m["finite"]]
+    trainer.load_state(state1)
+    with programs.eager():
+        for b in bad[:2] + bad[3:]:
+            trainer.train_step(b)
+    want = trainer.state()
+    gap = max(float(np.linalg.norm(np.asarray(p, np.float64) - q)
+                    / max(np.linalg.norm(np.asarray(q, np.float64)), 1e-30))
+              for p, q in zip(leaves(after), leaves(want)))
+    nan_check = {"all_nan_group": all_nan, "mid_group_finite": finite,
+                 "mid_group_vs_eager_without_it_rel": gap,
+                 "mid_group_bit_equal": all(np.array_equal(p, q) for p, q
+                                            in zip(leaves(after),
+                                                   leaves(want))),
+                 "mid_group_steps": after.step - state1.step,
+                 "mid_group_updates": int(after.opt_state[-1])
+                 - int(state1.opt_state[-1])}
+    if (all_nan["finite"] != [False] * PROG_GROUP
+            or not all_nan["state_bit_equal"]
+            or all_nan["steps"] != PROG_GROUP
+            or finite != [True, True, False, True] or gap > PROG_RTOL
+            or nan_check["mid_group_steps"] != PROG_GROUP
+            or nan_check["mid_group_updates"] != PROG_GROUP - 1):
+        raise AssertionError(f"programs train {dtype_name}: NaN batches "
+                             f"{nan_check}")
+
+    # times: a replayed group and an eager one, each per step
+    stacked = trainer._stack_group(groups[0])
+
+    def timed(eager: bool):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with programs.eager() if eager else contextlib.nullcontext():
+            trainer.train_group(stacked)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / PROG_GROUP
+
+    prog_ms = float(np.median([timed(False) for _ in range(3)]))
+    eager_ms = float(np.median([timed(True) for _ in range(3)]))
+    idle_p = idle_share(torch, lambda: trainer.train_group(stacked))
+    with programs.eager():
+        idle_e = idle_share(torch, lambda: trainer.train_group(stacked))
+
+    # the dropout control: at lr 0 and dropout 0 two replays of one batch
+    # give the same loss
+    trainer.schedule = LRSchedule(0.0)
+    losses = [float(trainer.train_step(batches[0])["loss"])
+              for _ in range(3)]
+    if losses[1] != losses[2]:
+        raise AssertionError(f"programs train {dtype_name}: at dropout 0 "
+                             f"and lr 0 two replays differ: {losses}")
+    summary = {p["name"]: p for p in (trainer._multi_program.summary(),
+                                      trainer._train_program.summary())}
+    del trainer
+    torch.cuda.empty_cache()
+    return {"rel": rel, "bit_equal": bit_equal, "nan_mid_group": nan_check,
+            "program_step_ms": prog_ms, "eager_step_ms": eager_ms,
+            "program_idle": idle_p, "eager_idle": idle_e,
+            "dropout0_lr0_losses": losses, "programs": summary}
+
+
+def programs_train(torch, dev, counters) -> dict:
+    """Phase 11 (c): both dtypes, then the draws of dropout at the
+    recipe's rate: at lr 0 two replays of one batch must differ."""
+    from css_tpu_torch.models import state_dict_from_checkpoint
+    from css_tpu_torch.trainer.checkpoint import load_checkpoint
+
+    batches = [train_batch(PROG_TRAIN_SEED + i)
+               for i in range(2 * PROG_GROUP)]
+    nan_batch = {k: v.copy() for k, v in batches[2].items()}
+    nan_batch["mix"][0, 100] = np.nan
+    flagship = state_dict_from_checkpoint("Conformer",
+                                          load_checkpoint(CHECKPOINT))
+    out = {dtype: programs_train_dtype(torch, dev, counters, batches,
+                                       nan_batch, flagship, dtype)
+           for dtype in ("float32", "bf16")}
+    # the recipe's dropout (build_model's default), lr 0
+    trainer = make_trainer(torch, "Conformer", {}, 0.0, dev)
+    trainer.model.load_state_dict(flagship)
+    losses = [float(trainer.train_step(batches[0])["loss"])
+              for _ in range(4)]
+    if len(set(losses[1:])) != 3:
+        raise AssertionError(f"programs train: at the recipe's dropout "
+                             f"the replays repeat their masks: {losses}")
+    out["dropout_lr0_losses"] = losses
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"programs train: {json.dumps(out)}")
+    return out
+
+
+def programs_cli(torch, counters) -> dict:
+    """Phase 11 (d): ``cli.train`` with --steps-per-dispatch PROG_GROUP on
+    one window bucket (so that a group and a validation batch replay):
+    finite losses, launches as phase 6 (c) counts them, and the trainer's
+    programs."""
+    import tempfile
+    from pathlib import Path
+
+    from css_tpu_torch.cli import train as train_cli
+
+    epochs, nb, nv = 3, PROG_GROUP, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        expdir = Path(tmp) / "exp"
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        trainer = train_cli.main(RECIPE_ARGS + [
+            "--expdir", str(expdir), "--num-epochs", str(epochs),
+            "--batches-per-epoch", str(nb), "--validate-batches", str(nv),
+            "--steps-per-dispatch", str(PROG_GROUP), "--batch-size", "32",
+            "--min-window-size", "4.0", "--max-window-size", "4.0",
+            "--init", CHECKPOINT, "--device", "cuda"])
+        sec = time.perf_counter() - t0
+        counts, routes = read_counts(counters)
+        with open(expdir / "train.1.jsonl") as fh:
+            records = [json.loads(line) for line in fh]
+    summary = {p.summary()["name"]: p.summary() for p in (
+        trainer._multi_program, trainer._train_program,
+        trainer._eval_program)}
+    del trainer
+    torch.cuda.empty_cache()
+    expect = {"stft_mag": epochs * (nb + nv), "istft": 0, "lstm_fused": 0}
+    losses = [r["loss"] for r in records if "loss" in r]
+    rec = {"seconds": sec, "launches": counts, "plain_routes": routes,
+           "losses": losses, "programs": summary}
+    log(f"programs cli.train: {json.dumps(rec)}")
+    if (counts != expect or any(routes.values()) or not losses
+            or not np.isfinite(losses).all()
+            or summary["train_multi"]["replays"] < 1
+            or summary["eval_step"]["replays"] < 1):
+        raise AssertionError(f"programs cli.train: {rec}, expected launches "
+                             f"{expect}, a replayed group and eval step")
+    return rec
+
+
+def programs_path(torch, dev, counters, mix, srcs) -> dict:
+    """Phase 11 (module docstring), in a work directory removed at the
+    end."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from css_tpu_torch.utils import programs
+
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_programs_"))
+    try:
+        rec = {"separator": programs_separator(torch, dev, counters, mix,
+                                               srcs, work)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["streaming"] = programs_streaming(torch, dev, counters, mix)
+    rec["train"] = programs_train(torch, dev, counters)
+    rec["cli_train"] = programs_cli(torch, counters)
+    rec["live_programs"] = programs.report()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3416,6 +3941,39 @@ def main() -> int:
           f"{tl['wer']['wer']}, SI-SNRi {tl['mean_si_snri_db']:.2f} dB; "
           f"{smi_line}", flush=True)
     phase("export, serve, import, tools", t0)
+
+    # -------------------------------------------------------- 11. programs
+    t0 = time.perf_counter()
+    rec11 = programs_path(torch, dev, counters, mix, srcs)
+    print("programs " + json.dumps(rec11), flush=True)
+    sp, st, tr = rec11["separator"], rec11["streaming"], rec11["train"]
+    for r in results:
+        r["launches_by_path"]["programs_flagship_bf16"] = \
+            sp["flagship_bf16"]["launches_program"][r["name"]]
+        r["launches_by_path"]["programs_blstm"] = \
+            sp["blstm_float32"]["launches_program"][r["name"]]
+    print(f"main_path programs (captured CUDA graphs against eager "
+          f"dispatch): separator session s " + ", ".join(
+              f"{k} {v['program_s_median']:.4f} vs {v['eager_s_median']:.4f}"
+              f" (masks max abs {v['mask_max_abs']:.3e}, capture "
+              f"{v['capture_s']:.2f} s, pool {v['pool_bytes']} bytes)"
+              for k, v in sp.items())
+          + f"; window push median {1e3 * st['window']['program_push_s_median']:.2f}"
+          f" vs {1e3 * st['window']['eager_push_s_median']:.2f} ms; hop "
+          f"chunk median blstm "
+          f"{1e3 * st['hop_blstm']['program_chunk_s_median']:.2f} vs "
+          f"{1e3 * st['hop_blstm']['eager_chunk_s_median']:.2f} ms, "
+          f"conformer {1e3 * st['hop_conformer']['program_chunk_s_median']:.2f}"
+          f" vs {1e3 * st['hop_conformer']['eager_chunk_s_median']:.2f} ms; "
+          f"train step ms " + ", ".join(
+              f"{d} {tr[d]['program_step_ms']:.1f} vs "
+              f"{tr[d]['eager_step_ms']:.1f} (idle "
+              f"{(tr[d]['program_idle'] or {}).get('idle_share')} vs "
+              f"{(tr[d]['eager_idle'] or {}).get('idle_share')})"
+              for d in ("float32", "bf16"))
+          + f"; cli.train G={PROG_GROUP} losses "
+          f"{rec11['cli_train']['losses']}; {smi_line}", flush=True)
+    phase("programs", t0)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(smi_line, flush=True)

@@ -189,11 +189,14 @@ def parse_arguments(argv=None):
     parser.add_argument("--num-epochs", type=int, default=10)
     parser.add_argument("--batches-per-epoch", type=int, default=500)
     parser.add_argument("--steps-per-dispatch", type=int, default=4,
-                        help="the mixer holds each window bucket for this "
-                             "many batches, as in css_tpu; the port runs "
-                             "the steps one after another (css_tpu scans "
-                             "them in one device program), with the same "
-                             "results")
+                        help="train steps launched as one program on the "
+                             "card (single strategy; a captured CUDA graph "
+                             "of G steps, as css_tpu scans them in one "
+                             "device program), with no host "
+                             "synchronisation between them; the mixer holds "
+                             "each window bucket for this many batches and "
+                             "the loader regroups same-shape runs so groups "
+                             "stack. 1 = one program per step")
     parser.add_argument("--strategy", default="single",
                         choices=["single", "dp", "replica_avg"],
                         help="dp: synchronous data parallelism over the "
@@ -463,9 +466,14 @@ def _train(args, device, rank: int, n_proc: int):
             return dmix.wrap(ds)  # spatial rendering happens on the card
         return spatial(ds, conf["seed"] + 7 * i + 31)
 
+    # G same-shape steps a dispatch, single strategy only (as css_tpu)
+    group = args.steps_per_dispatch if args.strategy == "single" else 1
     if args.num_workers > 1:
-        dataset = PrefetchLoader(factory=make_train_stream,
-                                 num_threads=args.num_workers, device=device)
+        # with G > 1 the batches stay on the host until a group is whole,
+        # and the group moves to the card in one transfer a key
+        dataset = PrefetchLoader(
+            factory=make_train_stream, num_threads=args.num_workers,
+            device=device if group == 1 else None, group=group)
     else:
         dataset = make_train_stream()
     if dev_dmix is not None:
@@ -563,7 +571,8 @@ def _train(args, device, rank: int, n_proc: int):
         k.launches = k.plain_routes = 0
     for e in range(start_epoch, start_epoch + args.num_epochs):
         avg_loss = trainer.train_one_epoch(dataset, args.batches_per_epoch,
-                                           metrics_log, dmix=dmix)
+                                           metrics_log, dmix=dmix,
+                                           steps_per_dispatch=group)
         if args.strategy == "replica_avg":
             alive = _alive(args, strategy.num_replicas, e - start_epoch)
             strategy.average(alive)

@@ -8,6 +8,14 @@ the copy overlaps the step the card is running. With on-device mixing a
 producer is ``DeviceMixer.wrap(mixer_i)``, and what it stages is an
 encoded recipe: the small ``dm_i``/``dm_f`` arrays, pinned and copied the
 same way.
+
+``group=G`` regroups the batches into runs of G of one window shape, as
+``css_tpu``'s loader does for its multi-step dispatch
+(``Trainer.train_one_epoch(steps_per_dispatch=G)``): producer threads
+interleave, so G consecutive batches rarely share a shape even when every
+producer holds its window bucket for G draws. Best effort, with bounded
+buffering: a group whose shape does not arrive within 2G pulls is given
+up.
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ class PrefetchLoader:
 
     def __init__(self, it=None,
                  factory: Optional[Callable[[int], Iterator]] = None,
-                 prefetch: int = 4, num_threads: int = 1, device=None):
+                 prefetch: int = 4, num_threads: int = 1, device=None,
+                 group: int = 1):
         if (it is None) == (factory is None):
             raise ValueError("pass exactly one of it= or factory=")
         if factory is None and num_threads > 1:
@@ -39,6 +48,10 @@ class PrefetchLoader:
         self.queue: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self.device = torch.device(device) if device is not None else None
         self._pin = self.device is not None and self.device.type == "cuda"
+        self.group = max(int(group), 1)
+        self._pending: dict = {}  # window shape -> batches held back
+        self._current_key = None
+        self._current_left = 0
         self._stop = threading.Event()
         self.threads = []
         iterators = ([it] if factory is None
@@ -82,10 +95,54 @@ class PrefetchLoader:
     def __iter__(self) -> Iterator:
         return self
 
-    def __next__(self):
+    def _get(self):
         item = self.queue.get()
         if isinstance(item, Exception):
             raise item
+        return item
+
+    @staticmethod
+    def _shape_key(batch):
+        """The window length: of the waveforms, or of an encoded recipe
+        (the port's ``win``)."""
+        for k in ("mix", "dm_winmark"):
+            if isinstance(batch, dict) and k in batch:
+                return batch[k].shape[-1]
+        if isinstance(batch, dict) and "win" in batch:
+            return int(batch["win"])
+        return None
+
+    def _get_grouped(self):
+        """The next batch of the current same-shape group (port of
+        ``css_tpu/data/loader.py``'s ``_get_grouped``)."""
+        if self._current_left > 0:
+            buf = self._pending.get(self._current_key)
+            if buf:
+                self._current_left -= 1
+                return buf.pop(0)
+            # pull until the current shape arrives (bounded buffering)
+            cap = 2 * self.group
+            while sum(map(len, self._pending.values())) < cap:
+                b = self._get()
+                k = self._shape_key(b)
+                if k == self._current_key:
+                    self._current_left -= 1
+                    return b
+                self._pending.setdefault(k, []).append(b)
+            self._current_left = 0  # give up on this group
+        # a new group from the deepest backlog, else a fresh pull
+        if any(self._pending.values()):
+            self._current_key = max(self._pending,
+                                    key=lambda k: len(self._pending[k]))
+        else:
+            b = self._get()
+            self._current_key = self._shape_key(b)
+            self._pending.setdefault(self._current_key, []).append(b)
+        self._current_left = self.group - 1
+        return self._pending[self._current_key].pop(0)
+
+    def __next__(self):
+        item = self._get_grouped() if self.group > 1 else self._get()
         if self.device is None:
             return item
         return {k: (v.to(self.device, non_blocking=self._pin)

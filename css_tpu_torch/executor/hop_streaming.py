@@ -18,6 +18,12 @@ and synthesis are ``ops/stft.py``'s matrices, as ``css_tpu`` computes
 them outside any Pallas kernel. On the causal BLSTM each chunk launches
 K2 once per layer with the carried (h, c).
 
+On the card the device part of a chunk is one captured CUDA graph a
+chunk size (``utils/programs.py``), as ``css_tpu``'s ``_step_fn`` is one
+program a chunk size: the model's carry lives in static buffers that
+every replay updates in place. On the CPU the same function runs
+directly.
+
 Latency: one analysis frame plus its overlap, ``frame_len + (frame_len -
 hop)`` samples (48 ms at 512/256 and 16 kHz), plus the chunk (8 frames:
 128 ms). Chained chunks give the full-utterance causal forward, so the
@@ -31,9 +37,11 @@ from typing import Union
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from css_tpu_torch.device import resolve_device
 from css_tpu_torch.ops import stft as stft_ops
+from css_tpu_torch.utils.programs import Program
 
 
 class HopStreamingPipeline:
@@ -75,7 +83,10 @@ class HopStreamingPipeline:
                                        device=dev)
         self._env_frame = stft_ops.hann_window(self.frame_len) ** 2
 
-        self._carry = self.model.stream_init(1)
+        # the model's carry, updated in place by every step: every leaf a
+        # buffer of its own (stream_init may hand one zero tensor to two)
+        self._carry = pytree.tree_map(torch.clone, self.model.stream_init(1))
+        self.program = Program(self._step_impl, "hop_step")
         ov = self.frame_len - self.hop
         self._raw = np.zeros(0, np.float32)  # samples not yet consumed
         self._total = 0  # samples pushed in all
@@ -88,12 +99,21 @@ class HopStreamingPipeline:
     @torch.no_grad()
     def _step(self, frames: torch.Tensor) -> torch.Tensor:
         """(n, frame_len) raw frames -> masked synthesis frames (K, n,
-        frame_len) on the device, advancing the model's carry."""
+        frame_len) on the device, advancing the model's carry: one program
+        replay on the card."""
+        dtype = getattr(self.model, "compute_dtype", None)
+        return self.program(frames, mode=(dtype,))
+
+    def _step_impl(self, frames: torch.Tensor) -> torch.Tensor:
         spec = frames @ self._analysis  # (n, 2 * bins) [re | im]
         bins = spec.shape[-1] // 2
         re, im = spec[:, :bins], spec[:, bins:]
         mag = torch.sqrt(re ** 2 + im ** 2)
-        masks, self._carry = self.model.stream(mag[None], self._carry)
+        masks, carry = self.model.stream(mag[None], self._carry)
+        for dst, src in zip(pytree.tree_leaves(self._carry),
+                            pytree.tree_leaves(carry)):
+            if src is not dst:
+                dst.copy_(src)
         m = masks[0]  # (n, F, S), S = num_spk + num_noise
         # winner-take-all across the streams, per frame (final at once)
         m = torch.where(m == m.amax(dim=-1, keepdim=True), m,

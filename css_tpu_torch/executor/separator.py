@@ -8,6 +8,13 @@ are clamped at 1. With ``merge`` (7ch) the DOA merge
 (``executor/doa.py``) kills the weaker of the two speaker masks in every
 window whose two DOAs coincide. Everything stays on ``device``.
 
+On the card ``forward`` is one captured CUDA graph a (batch, [channels,]
+window, compute dtype) (``utils/programs.py``), the counterpart of the
+JAX package's jitted forward: K3, the model forward (or the served
+artifact), the clamp and the 7ch DOA merge in one replay. Its outputs are
+the replay's own copies, so the slices a caller keeps never alias the
+graph's static buffers. On the CPU the same function runs directly.
+
 ``Separator(None, exported_path=...)`` serves a ``torch.export``
 artifact of the clamped forward (``cli/export.py``) in place of a live
 model; the features (K3) and the DOA merge stay outside it, as in the
@@ -26,6 +33,7 @@ from css_tpu_torch.device import resolve_device
 from css_tpu_torch.executor.doa import SteeringVectors, kill_masks
 from css_tpu_torch.executor.windowing import EXTRA_SAMPLES, unfold
 from css_tpu_torch.ops.features import FeatureExtractor
+from css_tpu_torch.utils.programs import Program
 
 
 class Separator:
@@ -74,12 +82,18 @@ class Separator:
         # windows whose weaker speaker mask the DOA merge killed in the
         # last separate() call (a 0-d tensor on device; None without merge)
         self.merge_kills = None
+        self.program = Program(self._forward_impl, "separator_forward")
 
     @torch.no_grad()
     def forward(self, wav_batch: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """(B, N) or (B, C, N) windows -> (masks (B, T, F, S) clamped at 1,
-        mag (B, T, F), kill (B, 2) bool from the DOA merge or None)."""
+        mag (B, T, F), kill (B, 2) bool from the DOA merge or None): one
+        program replay on the card."""
+        dtype = getattr(self.model, "compute_dtype", None)
+        return self.program(wav_batch, mode=(dtype,))
+
+    def _forward_impl(self, wav_batch: torch.Tensor):
         if self.merge:
             mag, feats, spec = self.features(wav_batch, return_spec=True)
         else:

@@ -13,6 +13,7 @@ Layout is time-major (..., T, F).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -67,6 +68,13 @@ def parse_ipd_index(ipd_index: str) -> Tuple[np.ndarray, np.ndarray]:
     return left, right
 
 
+@functools.lru_cache(maxsize=None)
+def _channels(index: tuple, device: torch.device) -> torch.Tensor:
+    """Channel indices on ``device``, made once (a captured program
+    cannot copy them from the host)."""
+    return torch.as_tensor(index, dtype=torch.int64, device=device)
+
+
 def ipd(phase: torch.Tensor, left: np.ndarray,
         right: np.ndarray) -> torch.Tensor:
     """Inter-channel phase difference, re-centred over time.
@@ -74,8 +82,8 @@ def ipd(phase: torch.Tensor, left: np.ndarray,
     phase (..., C, T, F) -> (..., M, T, F): the pair's phase difference
     as a unit vector (cos, sin), its mean over frames subtracted, and the
     angle of what is left, in (-pi, pi]."""
-    left = torch.as_tensor(left, device=phase.device)
-    right = torch.as_tensor(right, device=phase.device)
+    left = _channels(tuple(int(i) for i in left), phase.device)
+    right = _channels(tuple(int(i) for i in right), phase.device)
     dif = (torch.index_select(phase, -3, left)
            - torch.index_select(phase, -3, right))
     yr, yi = torch.cos(dif), torch.sin(dif)

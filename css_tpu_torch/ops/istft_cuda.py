@@ -23,12 +23,14 @@ from the shape alone before any launch and counted in
 not a power of two in [4, 2048]**, runs the plain version on the card, as
 the reference runs such shapes on XLA. More than ``MAX_ROWS`` rows are
 split across launches (rows are independent, so this is exact).
-``istft.launches`` counts kernel launches.
+``istft.launches`` counts kernel launches, those of a captured
+program's replays too (``utils/programs.py``).
 """
 
 from __future__ import annotations
 
 import functools
+import sys
 
 import numpy as np
 import torch
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from css_tpu_torch.ops import _build, stft_mag_cuda
 from css_tpu_torch.ops import stft as stft_ops
+from css_tpu_torch.utils import programs
 
 MAX_ROWS = 65535  # rows sit in gridDim.y
 
@@ -112,6 +115,8 @@ def istft(spec: torch.Tensor, frame_len: int = 512,
 
 istft.launches = 0
 istft.plain_routes = 0
+# a captured program counts its launches at every replay
+programs.register_kernel(sys.modules[__name__], "istft")
 
 
 def istft_centered(spec: torch.Tensor, frame_len: int = 512, hop: int = 256,

@@ -45,7 +45,8 @@ ValueError that names the shape (the kernel's barrier would wait for a
 cluster that never starts). A batch above ``MAX_BATCH`` rows is split
 across launches (batch entries are independent, so this is exact).
 ``lstm_fused.launches`` counts kernel launches, and the op's CUDA kernel
-counts them, so a served artifact's launches count as the live model's.
+counts them, so a served artifact's launches count as the live model's;
+a captured program's replays count too (``utils/programs.py``).
 
 Streaming (hop-granular, a causal LSTM over chunks of a few frames) hands
 the recurrence a carried state: ``state=(h0, c0)``, h0 (B, h) in xw's
@@ -60,11 +61,13 @@ dtype; in float32 the two are the same function.)
 
 from __future__ import annotations
 
+import sys
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from css_tpu_torch.ops import _build
+from css_tpu_torch.utils import programs
 
 DTYPES = (torch.float32, torch.bfloat16)
 SHAPE_REFUSED = -1  # css_lstm's return for a plan the kernel does not take
@@ -359,3 +362,5 @@ lstm_fused.plain_routes = 0
 # the counters' owner, kept apart from the module attribute that a
 # measurement may swap for lstm_plain
 _COUNTS = lstm_fused
+# a captured program counts its launches at every replay
+programs.register_kernel(sys.modules[__name__], "lstm_fused")

@@ -10,6 +10,7 @@ JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Tuple
 
 import torch
@@ -29,11 +30,17 @@ def l1_pairwise(est: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(est - ref))
 
 
+@functools.lru_cache(maxsize=None)
+def _perm_table(k: int, device: torch.device) -> torch.Tensor:
+    """The (K!, K) permutation table on ``device``, made once (a captured
+    program cannot copy it from the host)."""
+    return torch.as_tensor(permutations_array(k), device=device,
+                           dtype=torch.long)
+
+
 def _perm_losses(estimate, target, loss_fn):
     """estimate, target (B, K, ...) -> the (B, K!) losses and the table."""
-    k = estimate.shape[1]
-    perms = torch.as_tensor(permutations_array(k), device=estimate.device,
-                            dtype=torch.long)
+    perms = _perm_table(estimate.shape[1], estimate.device)
     permuted = estimate[:, perms]  # (B, K!, K, ...)
     per_example = torch.func.vmap(loss_fn, in_dims=(0, None))
     losses = torch.func.vmap(per_example)(permuted, target)

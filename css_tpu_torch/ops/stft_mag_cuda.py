@@ -22,19 +22,22 @@ from the shape alone before any launch and counted in
 [4, 2048]**, runs the plain version on the card, as the reference runs
 such shapes on XLA. More than ``MAX_ROWS`` rows are split across
 launches (rows are independent, so this is exact). ``stft_mag.launches``
-counts kernel launches.
+counts kernel launches, a captured program's replays too
+(``utils/programs.py``).
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import sys
 
 import numpy as np
 import torch
 
 from css_tpu_torch.ops import _build
 from css_tpu_torch.ops import stft as stft_ops
+from css_tpu_torch.utils import programs
 
 MAX_ROWS = 65535  # rows sit in gridDim.y
 MIN_FFT, MAX_FFT = 4, 2048  # the kernel's FFT lengths (shared memory)
@@ -119,3 +122,5 @@ def stft_mag(x: torch.Tensor, frame_len: int = 512,
 
 stft_mag.launches = 0
 stft_mag.plain_routes = 0
+# a captured program counts its launches at every replay
+programs.register_kernel(sys.modules[__name__], "stft_mag")

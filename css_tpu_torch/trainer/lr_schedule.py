@@ -7,7 +7,9 @@ A plain function of the count n of completed updates:
   else:                  lr * exp(-decay * (n - warmup - fixed))
 With warmup > 0 the first update runs at min_lr. Computed in float32, in
 the JAX package's order of operations, so both packages apply the same
-rate.
+rate: on the host for an int count, and on the card for a count tensor
+(the trainer's update and step counters), where the train step program
+reads it without a synchronisation.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 f32 = np.float32
 
@@ -44,8 +47,12 @@ class LRSchedule:
             min_lr=float(conf.get("min_lr", 1e-9)),
         )
 
-    def __call__(self, step: int) -> float:
-        """The rate of the update that follows ``step`` completed ones."""
+    def __call__(self, step):
+        """The rate of the update that follows ``step`` completed ones: a
+        float for an int, a float32 0-d tensor on the count's device for a
+        count tensor."""
+        if isinstance(step, torch.Tensor):
+            return self._on_device(step)
         n = f32(step)
         if n > self.warmup + self.fixed:
             rate = f32(self.lr) * np.exp(
@@ -56,3 +63,17 @@ class LRSchedule:
             rate = (f32(self.min_lr) + f32(self.lr - self.min_lr) * n
                     / f32(self.warmup))
         return float(f32(rate))
+
+    def _on_device(self, step: torch.Tensor) -> torch.Tensor:
+        """``css_tpu/trainer/lr_schedule.py``'s expression, op for op, in
+        float32 on the count's device."""
+        n = step.to(torch.float32)
+        decay_n = torch.clamp(n - float(self.warmup + self.fixed), min=0.0)
+        decayed = self.lr * torch.exp(-self.decay * decay_n)
+        hold = torch.where(n <= self.warmup + self.fixed,
+                           torch.full_like(n, self.lr), decayed)
+        if self.warmup <= 0:
+            return hold
+        warm = (self.min_lr + (self.lr - self.min_lr) * n
+                / float(self.warmup))
+        return torch.where(n <= self.warmup, warm, hold)

@@ -8,9 +8,11 @@ and float32 (TF32 off) and the full-width BLSTM (hidden 1024, 3 layers)
 in bf16, on chip_smoke.py's training batch (``train_batch``: 32 windows
 of 4.0 s of the recipe's on-the-fly mixtures) and trainer
 (``make_trainer``: random weights, Adam, clip 5.0, MSE with noise weight
-0.3): warm steps, then ``--steps`` steps under torch.profiler (CPU and
-CUDA). Prints one JSON line per configuration: host ms per step (the
-profiled window over the steps), the device kernel time per step (the sum
+0.3): three warm steps (the train step is the trainer's captured CUDA
+graph: the first runs eagerly, the second captures), then ``--steps``
+replayed steps under torch.profiler (CPU and CUDA). Prints one JSON
+line per configuration: host ms per step (the profiled window over the
+steps), the device kernel time per step (the sum
 of every kernel's and copy's self device time, without the
 record_function spans), the idle share of the card (1 - device / host
 time; the profiler's own host overhead counts in the host time), and the ``--top`` kernels by device time with their

@@ -602,3 +602,30 @@ def test_hop_stream_launches_k2_three_times_a_chunk(card):
         want = model(f)[1]
     torch.testing.assert_close(torch.cat(chunks, dim=1), want, atol=2e-5,
                                rtol=2e-4)
+
+
+def test_program_replays_count_launches_and_copy_outputs(card):
+    """K3 in a program (utils/programs.py): the first call eager, the
+    second captured, every replay counted once and its outputs fresh
+    copies that no later replay overwrites; a capture that fails raises
+    and names its program."""
+    from css_tpu_torch.utils import programs
+
+    prog = programs.Program(
+        lambda x: {"mag": stft_mag_cuda.stft_mag(x * 2.0)}, "test_k3")
+    xs = [_signal((3, 4096), seed, card) for seed in range(4)]
+    stft_mag_cuda.stft_mag.launches = 0
+    outs = [prog(x)["mag"] for x in xs]
+    assert stft_mag_cuda.stft_mag.launches == len(xs)
+    for x, out in zip(xs, outs):
+        torch.testing.assert_close(out, stft_mag_cuda.stft_mag_plain(x * 2.0),
+                                   atol=ATOL, rtol=RTOL)
+    with programs.eager():
+        assert torch.equal(prog(xs[-1])["mag"], outs[-1])
+    assert prog.summary()["captures"] == 1
+    assert prog.summary()["replays"] == len(xs) - 1
+
+    bad = programs.Program(lambda x: x[x > 0].sum(), "test_sync")
+    bad(xs[0])
+    with pytest.raises(RuntimeError, match="test_sync"):
+        bad(xs[0])

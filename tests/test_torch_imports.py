@@ -39,7 +39,8 @@ print(" ".join(names))
     count, names = res.stdout.strip().splitlines()
     assert int(count) >= 20
     # the 7ch slice's modules, the training slices', the streaming
-    # slice's, the parallel slice's and the tools slice's are among them
+    # slice's, the parallel slice's, the tools slice's and the step
+    # programs' are among them
     for name in ("executor.doa", "executor.reanchor", "ops.mvdr",
                  "data.spatial", "ops.pit", "objectives", "objectives.base",
                  "objectives.mse", "objectives.snr", "objectives.masksnr",
@@ -53,7 +54,7 @@ print(" ".join(names))
                  "parallel.launch", "parallel.runner", "executor.sharded",
                  "cli.train_parallel", "utils.config", "cli.export",
                  "cli.import_torch", "cli.evaluate", "cli.prepare",
-                 "cli.wer", "cli.toy_asr"):
+                 "cli.wer", "cli.toy_asr", "utils.programs"):
         assert "css_tpu_torch." + name in names.split()
 
 
