@@ -1,0 +1,177 @@
+"""The traced run: the benchmark's own spans around calls into the
+program, and the device's timeline from ``torch.profiler``.
+
+``Tracer(enabled)``: with tracing off every method is a no-op, so the
+untraced run times the program alone. With it on:
+
+  * ``span(name)`` times a block on the host clock (ended by a
+    synchronise where ``sync``) and marks it in the profiler's timeline
+    as ``bench.<name>``;
+  * ``window()`` brackets the traced window: the profiler (CPU and CUDA
+    activities) runs over it, and at its close the device's operations
+    (kernels, copies, sets) inside it are read from the profiler's raw
+    records, without building its event tree.
+
+``record()`` then holds what the metric readers read: the window's length,
+the union of device intervals (``busy_s``), the device time and count of
+every operation by name, the idle gaps between device intervals summed by
+the innermost span the host was in at the time, and the spans' durations.
+"""
+
+from __future__ import annotations
+
+import bisect
+import contextlib
+import time
+from collections import defaultdict
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+PREFIX = "bench."
+NAME_CHARS = 160  # a device operation's name as the breakdown gives it
+
+
+def _record_function(name: str):
+    from torch.profiler import record_function
+
+    return record_function(PREFIX + name)
+
+
+class Tracer:
+    def __init__(self, enabled: bool, device: torch.device):
+        self.enabled = bool(enabled)
+        self.device = device
+        self.spans: Dict[str, List[float]] = defaultdict(list)
+        self.window_s: Optional[float] = None
+        self.busy_s: Optional[float] = None
+        self.ops: Dict[str, List[float]] = {}  # name -> [seconds, count]
+        self.gaps: Dict[str, float] = {}
+        self.note: Optional[str] = None
+        self._prof = None
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def span(self, name: str, sync: bool = False):
+        if not self.enabled:
+            yield
+            return
+        with _record_function(name):
+            t = time.perf_counter()
+            try:
+                yield
+            finally:
+                if sync:
+                    self._sync()
+                self.spans[name].append(time.perf_counter() - t)
+
+    def wrap(self, fn, name: str, sync: bool = True):
+        """``fn`` run inside ``span(name, sync)``."""
+        def timed(*args, **kwargs):
+            with self.span(name, sync):
+                return fn(*args, **kwargs)
+        return timed
+
+    @contextlib.contextmanager
+    def window(self):
+        if not self.enabled:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._sync()
+        self._prof = profile(activities=acts)
+        self._prof.start()
+        t = time.perf_counter()
+        try:
+            with _record_function("window"):
+                yield
+            self._sync()
+        finally:
+            self.window_s = time.perf_counter() - t
+            self._prof.stop()
+        self._collect()
+        self._prof = None
+
+    def _collect(self) -> None:
+        events = self._prof.profiler.kineto_results.events()
+        window = None
+        marks: List[Tuple[int, int, str]] = []
+        device: List[Tuple[int, int, str]] = []
+        for e in events:
+            name = e.name()
+            if str(e.device_type()).endswith("CPU"):
+                if name == PREFIX + "window":
+                    window = (e.start_ns(), e.start_ns() + e.duration_ns())
+                elif name.startswith(PREFIX):
+                    marks.append((e.start_ns(), e.start_ns()
+                                  + e.duration_ns(), name[len(PREFIX):]))
+                continue
+            dur = e.duration_ns()
+            if dur <= 0 or name.startswith(PREFIX):
+                continue  # the spans' own marks on the device's timeline
+            device.append((e.start_ns(), e.start_ns() + dur, name))
+        if window is None:
+            self.note = "the profiler recorded no window marker"
+            return
+        lo, hi = window
+        ops: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
+        inside = []
+        for s, e, name in device:
+            if e > lo and s < hi:
+                inside.append((max(s, lo), min(e, hi)))
+                rec = ops[name[:NAME_CHARS]]
+                rec[0] += (e - s) * 1e-9
+                rec[1] += 1
+        device = sorted(inside)
+        if not device:
+            self.note = "the profiler recorded no device time in the window"
+            return
+        merged = [list(device[0])]
+        for s, e in device[1:]:
+            if s <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], e)
+            else:
+                merged.append([s, e])
+        self.busy_s = sum(e - s for s, e in merged) * 1e-9
+        self.ops = dict(ops)
+        gaps = [(lo, merged[0][0])] + [
+            (a[1], b[0]) for a, b in zip(merged, merged[1:])] + [
+            (merged[-1][1], hi)]
+        marks.sort()
+        starts = [m[0] for m in marks]
+        by_label: Dict[str, float] = defaultdict(float)
+        for s, e in gaps:
+            if e <= s:
+                continue
+            mid = (s + e) // 2
+            label = "harness"
+            i = bisect.bisect_right(starts, mid) - 1
+            for j in range(i, max(i - 64, -1), -1):
+                if marks[j][1] >= mid:  # the innermost span around mid
+                    label = marks[j][2]
+                    break
+            by_label[label] += (e - s) * 1e-9
+        self.gaps = dict(by_label)
+
+    def kernel(self, symbol: str) -> Tuple[float, int]:
+        """(device seconds, count) of the operations whose name holds
+        ``symbol``."""
+        secs = count = 0
+        for name, (s, n) in self.ops.items():
+            if symbol in name:
+                secs += s
+                count += n
+        return secs, count
+
+    def breakdown(self, top: int = 10) -> Dict:
+        ops = sorted(self.ops.items(), key=lambda kv: -kv[1][0])[:top]
+        gaps = sorted(self.gaps.items(), key=lambda kv: -kv[1])[:top]
+        return {"device_ops": [[n, s] for n, (s, _) in ops],
+                "idle_gaps": [[n, s] for n, s in gaps]}
