@@ -27,12 +27,17 @@ streams peak-normalised at the end.
 ``--model BLSTM`` takes a BLSTM checkpoint written by ``css_tpu`` (the npz
 format); its conf's ``blstm_*`` and ``bf16`` keys build the model. The
 config is read by ``utils/config.py`` (no PyYAML). The last log line
-gives the run's kernel launches and plain routes as JSON.
+gives the run's kernel launches and plain routes as JSON; with
+``--trace`` it also gives, for each span of ``utils/trace.py`` (the
+pipeline's stages and the separator's program calls), its count, host
+milliseconds and self milliseconds, and the counters (windows, batch
+slots, bytes up and down).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import time
@@ -49,6 +54,7 @@ from css_tpu_torch.models import (MODELS, build_model,
                                   state_dict_from_checkpoint)
 from css_tpu_torch.ops import istft_cuda, lstm_cuda, stft_mag_cuda
 from css_tpu_torch.trainer.checkpoint import load_checkpoint
+from css_tpu_torch.utils import trace
 from css_tpu_torch.utils.config import load_config
 
 log = logging.getLogger("css_tpu_torch.separate")
@@ -117,6 +123,12 @@ def main(argv=None):
                              "value; 8 = 128 ms added latency)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--trace", action="store_true",
+                        help="record the pipeline's spans and counters "
+                             "(utils/trace.py) and add their totals to the "
+                             "closing JSON log line: a span's count, host ms "
+                             "and self ms (host time; no span synchronises "
+                             "the card), and the counters")
     args = parser.parse_args(argv)
     logging.basicConfig(format="%(asctime)s %(levelname)-8s %(message)s",
                         level=logging.INFO)
@@ -125,8 +137,30 @@ def main(argv=None):
     config = load_config(args.config)
     model = load_model(args.checkpoint, args.model)
     pipe = CssPipeline(model, config, device=device)
-    total_audio = 0.0
     t0 = time.perf_counter()
+    with trace.recording() if args.trace else contextlib.nullcontext():
+        total_audio = _separate_all(args, pipe, model, config, device)
+    dt = time.perf_counter() - t0
+    if total_audio:
+        log.info("Processed %.1fs of audio in %.1fs (%.2fx realtime)",
+                 total_audio, dt, total_audio / dt)
+    kernels = (stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused)
+    closing = {
+        "launches": {k.__name__: k.launches for k in kernels},
+        "plain_routes": {k.__name__: k.plain_routes for k in kernels}}
+    if args.trace:
+        rec = trace.collect()
+        closing["spans"] = {
+            name: {"count": a["count"], "host_ms": a["total_ns"] * 1e-6,
+                   "self_ms": a["self_ns"] * 1e-6}
+            for name, a in sorted(rec["spans"].items())}
+        closing["counters"] = rec["counters"]
+    log.info("kernel launches %s", json.dumps(closing))
+
+
+def _separate_all(args, pipe, model, config, device) -> float:
+    """Separate every recording of the run; the seconds of audio."""
+    total_audio = 0.0
     for key, path in iter_recordings(args):
         wav, sr = read_wav(path)
         if sr != pipe.sr:
@@ -151,14 +185,7 @@ def main(argv=None):
         else:
             pipe.process_recording(key, wav, args.out_dir)
         total_audio += np.shape(wav)[-1] / sr
-    dt = time.perf_counter() - t0
-    if total_audio:
-        log.info("Processed %.1fs of audio in %.1fs (%.2fx realtime)",
-                 total_audio, dt, total_audio / dt)
-    kernels = (stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused)
-    log.info("kernel launches %s", json.dumps({
-        "launches": {k.__name__: k.launches for k in kernels},
-        "plain_routes": {k.__name__: k.plain_routes for k in kernels}}))
+    return total_audio
 
 
 if __name__ == "__main__":

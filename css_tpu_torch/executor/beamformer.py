@@ -31,6 +31,7 @@ from css_tpu_torch.ops import istft_cuda
 from css_tpu_torch.ops import stft as stft_ops
 from css_tpu_torch.ops.mvdr import (apply_beamformer, compute_scm,
                                     souden_coefficients)
+from css_tpu_torch.utils import trace
 
 # cross-stream dedup: a stream more than DEDUP_DB below the loudest one in
 # a window is ducked bin by bin, its gains floored at -40 dB
@@ -165,25 +166,29 @@ class Beamformer:
                            ) -> Tuple[torch.Tensor, ...]:
         """wav (T,) or (D, T); masks: K+1 stitched (T_frames, F) masks (K
         speaker streams, then noise) -> K waveforms (T,), peak-normalised
-        to 0.9."""
-        wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
-        if wav.ndim == 1:
-            wav = wav[None]
-        if wav.ndim != 2:
-            raise ValueError(f"beamforming takes (T,) or (D, T), got "
-                             f"{tuple(wav.shape)}")
-        total = wav.shape[-1]
-        wav_windows = unfold(wav, self.win, self.hop)  # (B, D, N)
-        mask_windows = [
-            unfold(torch.as_tensor(m, device=self.device).T, self.mask_win,
-                   self.mask_hop)  # (B, F, Tw)
-            for m in masks]
-        b = min([wav_windows.shape[0]] + [mw.shape[0] for mw in mask_windows])
-        tw = [mw[:b].transpose(1, 2) for mw in mask_windows]
-        wavs = self._process(wav_windows[:b].contiguous(),
-                             torch.stack(tw[:-1], dim=1), tw[-1])
-        outs = []
-        for s in range(wavs.shape[1]):
-            res = self._assemble(wavs[:, s], total)
-            outs.append(res * 0.9 / torch.clamp(res.abs().max(), min=1e-12))
-        return tuple(outs)
+        to 0.9. A ``beamformer`` span."""
+        with trace.span("beamformer"):
+            wav = torch.as_tensor(wav, dtype=torch.float32,
+                                  device=self.device)
+            if wav.ndim == 1:
+                wav = wav[None]
+            if wav.ndim != 2:
+                raise ValueError(f"beamforming takes (T,) or (D, T), got "
+                                 f"{tuple(wav.shape)}")
+            total = wav.shape[-1]
+            wav_windows = unfold(wav, self.win, self.hop)  # (B, D, N)
+            mask_windows = [
+                unfold(torch.as_tensor(m, device=self.device).T,
+                       self.mask_win, self.mask_hop)  # (B, F, Tw)
+                for m in masks]
+            b = min([wav_windows.shape[0]]
+                    + [mw.shape[0] for mw in mask_windows])
+            tw = [mw[:b].transpose(1, 2) for mw in mask_windows]
+            wavs = self._process(wav_windows[:b].contiguous(),
+                                 torch.stack(tw[:-1], dim=1), tw[-1])
+            outs = []
+            for s in range(wavs.shape[1]):
+                res = self._assemble(wavs[:, s], total)
+                outs.append(res * 0.9
+                            / torch.clamp(res.abs().max(), min=1e-12))
+            return tuple(outs)

@@ -10,6 +10,11 @@ streams come back to the host as numpy. ``separation.sharded: true``
 splits the windows of a recording over ``shard_devices`` (default: every
 visible card; ``executor/sharded.py``), stitches them on the first, and
 resynthesises there as the default path does.
+
+``process`` is a ``session`` span (``utils/trace.py``) holding
+``upload``, ``separator``, ``stitcher``, ``beamformer``, ``to_host``
+and ``reanchor``, with the counters ``sessions``, ``audio_samples``,
+``bytes_up`` and ``bytes_down``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from css_tpu_torch.executor.separator import Separator
 from css_tpu_torch.executor.sharded import ShardedSeparation
 from css_tpu_torch.executor.stitcher import Stitcher
 from css_tpu_torch.executor.windowing import pad_for_windows
+from css_tpu_torch.utils import trace
 
 
 class CssPipeline:
@@ -111,19 +117,29 @@ class CssPipeline:
         if wav.ndim not in (1, 2):
             raise ValueError(f"a recording is (T,) or (C, T), got "
                              f"{wav.shape}")
-        wav = torch.as_tensor(wav, device=self.device)
         total = wav.shape[-1]
-        wav = pad_for_windows(wav, self.separator.win, self.separator.hop)
-        if self.sharded is not None:
-            stitched = [s.to(self.device)
-                        for s in self.sharded.separate(wav)[0]]
-        else:
-            masks, mags = self.separator.separate(wav)
-            stitched = self.stitcher(masks, mags)
-        outs = self.beamformer.continuous_process(wav, stitched)
-        outs = [o[:total].cpu().numpy() for o in outs]
-        if self.reanchor:
-            outs, _ = reanchor_streams(outs, sr=self.sr)
+        with trace.span("session", audio_s=total / self.sr):
+            trace.count("sessions")
+            trace.count("audio_samples", total)
+            with trace.span("upload"):
+                trace.count("bytes_up", wav.nbytes)
+                wav = torch.as_tensor(wav, device=self.device)
+                wav = pad_for_windows(wav, self.separator.win,
+                                      self.separator.hop)
+            if self.sharded is not None:
+                stitched = [s.to(self.device)
+                            for s in self.sharded.separate(wav)[0]]
+            else:
+                masks, mags = self.separator.separate(wav)
+                stitched = self.stitcher(masks, mags)
+            outs = self.beamformer.continuous_process(wav, stitched)
+            with trace.span("to_host"):
+                outs = [o[:total].cpu().numpy() for o in outs]
+                if trace.enabled():
+                    trace.count("bytes_down", sum(o.nbytes for o in outs))
+            if self.reanchor:
+                with trace.span("reanchor"):
+                    outs, _ = reanchor_streams(outs, sr=self.sr)
         return tuple(outs)
 
     def process_recording(self, key: str, wav: np.ndarray, out_dir: str):

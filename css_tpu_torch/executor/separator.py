@@ -33,6 +33,7 @@ from css_tpu_torch.device import resolve_device
 from css_tpu_torch.executor.doa import SteeringVectors, kill_masks
 from css_tpu_torch.executor.windowing import EXTRA_SAMPLES, unfold
 from css_tpu_torch.ops.features import FeatureExtractor
+from css_tpu_torch.utils import trace
 from css_tpu_torch.utils.programs import Program
 
 
@@ -121,24 +122,30 @@ class Separator:
     def separate(self, wav: Union[np.ndarray, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """wav (T,) or (C, T) full recording -> (masks (B, T', F, S),
-        mags (B, T', F)) on ``device``, one row per sliding window."""
-        wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
-        if wav.ndim not in (1, 2):
-            raise ValueError(f"a recording is (T,) or (C, T), got "
-                             f"{tuple(wav.shape)}")
-        windows = unfold(wav, self.win, self.hop)  # (B, [C,] win) view
-        n = windows.shape[0]
-        bs = self.batch_size
-        outs_m, outs_g, kills = [], [], []
-        for i in range(0, n, bs):
-            chunk = windows[i : i + bs]
-            real = chunk.shape[0]
-            batch = chunk.new_zeros((bs,) + tuple(chunk.shape[1:]))
-            batch[:real] = chunk
-            masks, mag, kill = self.forward(batch)
-            outs_m.append(masks[:real])
-            outs_g.append(mag[:real])
-            if kill is not None:
-                kills.append(kill[:real].any(dim=-1).sum())
-        self.merge_kills = torch.stack(kills).sum() if kills else None
-        return torch.cat(outs_m), torch.cat(outs_g)
+        mags (B, T', F)) on ``device``, one row per sliding window. A
+        ``separator`` span: its own time is the batches' padding and the
+        final ``cat``; counters ``windows`` and ``batch_slots``."""
+        with trace.span("separator"):
+            wav = torch.as_tensor(wav, dtype=torch.float32,
+                                  device=self.device)
+            if wav.ndim not in (1, 2):
+                raise ValueError(f"a recording is (T,) or (C, T), got "
+                                 f"{tuple(wav.shape)}")
+            windows = unfold(wav, self.win, self.hop)  # (B, [C,] win) view
+            n = windows.shape[0]
+            bs = self.batch_size
+            trace.count("windows", n)
+            trace.count("batch_slots", -(-n // bs) * bs)
+            outs_m, outs_g, kills = [], [], []
+            for i in range(0, n, bs):
+                chunk = windows[i : i + bs]
+                real = chunk.shape[0]
+                batch = chunk.new_zeros((bs,) + tuple(chunk.shape[1:]))
+                batch[:real] = chunk
+                masks, mag, kill = self.forward(batch)
+                outs_m.append(masks[:real])
+                outs_g.append(mag[:real])
+                if kill is not None:
+                    kills.append(kill[:real].any(dim=-1).sum())
+            self.merge_kills = torch.stack(kills).sum() if kills else None
+            return torch.cat(outs_m), torch.cat(outs_g)

@@ -21,6 +21,7 @@ import torch
 
 from css_tpu_torch.device import resolve_device
 from css_tpu_torch.ops.stft import overlap_add
+from css_tpu_torch.utils import trace
 from css_tpu_torch.utils.permutations import permutations_array
 
 
@@ -71,13 +72,14 @@ class Stitcher:
         # m_n[s] = local mask index of global stream s at window n; the
         # boundary perm p maps now-local i -> prev-local p[i], so
         # m_n = argsort(p_n)[m_{n-1}]
-        m_cur = np.arange(k)
-        assign = [m_cur]
-        for p in perms.cpu().numpy():
-            m_cur = np.argsort(p)[m_cur]
-            assign.append(m_cur)
-        assign = torch.as_tensor(np.stack(assign), dtype=torch.long,
-                                 device=masks.device)  # (B, K)
+        with trace.span("stitcher.scan"):  # blocks on the masks' producer
+            m_cur = np.arange(k)
+            assign = [m_cur]
+            for p in perms.cpu().numpy():
+                m_cur = np.argsort(p)[m_cur]
+                assign.append(m_cur)
+            assign = torch.as_tensor(np.stack(assign), dtype=torch.long,
+                                     device=masks.device)  # (B, K)
         routed = torch.gather(masks[..., :k], -1,
                               assign[:, None, None, :].expand(b, t, f, k))
         m = torch.cat([routed, masks[..., k:]], dim=-1)
@@ -97,7 +99,9 @@ class Stitcher:
     @torch.no_grad()
     def __call__(self, masks: torch.Tensor, mags: torch.Tensor
                  ) -> Tuple[torch.Tensor, ...]:
-        """masks (B, T, F, K+noise), mags (B, T, F) -> K+1 x (T_total, F)."""
-        masks = torch.as_tensor(masks, device=self.device)
-        mags = torch.as_tensor(mags, device=self.device)
-        return self.get_connect(self.get_stitch(masks, mags), masks)
+        """masks (B, T, F, K+noise), mags (B, T, F) -> K+1 x (T_total, F):
+        a ``stitcher`` span, the host scan a ``stitcher.scan`` inside."""
+        with trace.span("stitcher"):
+            masks = torch.as_tensor(masks, device=self.device)
+            mags = torch.as_tensor(mags, device=self.device)
+            return self.get_connect(self.get_stitch(masks, mags), masks)

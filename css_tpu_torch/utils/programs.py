@@ -41,8 +41,15 @@ its function directly on the card too: for measurements that compare a
 program with eager dispatch, never a fallback.
 
 ``report()`` lists what every live program holds: its captures, their
-seconds, the bytes its graphs' pool holds on the card, and its
-replays.
+seconds, the seconds of its keys' first eager calls, the bytes its
+graphs' pool holds on the card, and its replays; ``build_seconds()``
+the seconds every program of the process, freed ones too, spent in
+first calls and captures (host time: neither synchronises).
+
+Every call is a ``program.<name>`` span (``utils/trace.py``), its
+``kind`` ``eager`` (a key's first call), ``capture`` (its second, which
+captures and replays), ``replay`` or ``direct`` (the function run
+directly: on the CPU, or under ``eager()``).
 """
 
 from __future__ import annotations
@@ -56,11 +63,14 @@ from typing import Callable, Dict, List, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from css_tpu_torch.utils import trace
+
 # (module, attribute, wrapper): the wrapper holds ``launches`` and
 # ``plain_routes``; the module attribute is what the models call
 _KERNELS: List[Tuple[object, str, Callable]] = []
 _PROGRAMS = weakref.WeakSet()
 _EAGER = [False]
+_BUILD_S = [0.0]  # first calls and captures of every program, in seconds
 
 
 def register_kernel(module, name: str) -> None:
@@ -101,6 +111,12 @@ def report() -> List[Dict]:
     return sorted((p.summary() for p in _PROGRAMS), key=lambda s: s["name"])
 
 
+def build_seconds() -> float:
+    """Host seconds of every key's first eager call and capture, over
+    every program this process has made."""
+    return _BUILD_S[0]
+
+
 class _Entry:
     """One key's graph: its static inputs and outputs, the counters'
     deltas of one replay, what its capture cost, and its replays."""
@@ -130,7 +146,9 @@ class Program:
         self.name = name
         self.generators = tuple(generators)
         self._entries: Dict[tuple, object] = {}
+        self._first_s: Dict[tuple, float] = {}
         self._pool = None
+        self._span = "program." + name
         _PROGRAMS.add(self)
 
     def key(self, leaves, spec, mode) -> tuple:
@@ -146,22 +164,32 @@ class Program:
         dev = next((x.device for x in leaves if isinstance(x, torch.Tensor)),
                    None)
         if dev is None or dev.type != "cuda" or _EAGER[0]:
-            return self.fn(*args)
+            with trace.span(self._span, kind="direct"):
+                return self.fn(*args)
         key = self.key(leaves, spec, mode)
         entry = self._entries.get(key, False)
         if entry is False:  # the first call: real work, eagerly
             self._entries[key] = None
-            return self.fn(*args)
-        if entry is None:
-            entry = self._entries[key] = self._capture(key, leaves, spec)
-        else:
-            for dst, src in zip(entry.static, leaves):
-                if isinstance(src, torch.Tensor) and src is not dst:
-                    dst.copy_(src, non_blocking=True)
-        entry.graph.replay()
-        entry.replays += 1
-        _add_counts(entry.deltas)
-        return pytree.tree_map(_clone, entry.out)
+            with trace.span(self._span, kind="eager"):
+                t = time.perf_counter()
+                out = self.fn(*args)
+                self._first_s[key] = time.perf_counter() - t
+            _BUILD_S[0] += self._first_s[key]
+            return out
+        with trace.span(self._span,
+                        kind="capture" if entry is None else "replay"):
+            if entry is None:
+                entry = self._entries[key] = self._capture(key, leaves,
+                                                           spec)
+                _BUILD_S[0] += entry.capture_s
+            else:
+                for dst, src in zip(entry.static, leaves):
+                    if isinstance(src, torch.Tensor) and src is not dst:
+                        dst.copy_(src, non_blocking=True)
+            entry.graph.replay()
+            entry.replays += 1
+            _add_counts(entry.deltas)
+            return pytree.tree_map(_clone, entry.out)
 
     def _capture(self, key, leaves, spec) -> _Entry:
         static = [x.detach().clone() if isinstance(x, torch.Tensor) else x
@@ -216,5 +244,6 @@ class Program:
         return {"name": self.name, "keys": len(self._entries),
                 "captures": len(graphs),
                 "capture_s": sum(e.capture_s for e in graphs),
+                "first_s": sum(self._first_s.values()),
                 "pool_bytes": self.pool_bytes(),
                 "replays": sum(e.replays for e in graphs)}

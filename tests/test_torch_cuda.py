@@ -629,3 +629,31 @@ def test_program_replays_count_launches_and_copy_outputs(card):
     bad(xs[0])
     with pytest.raises(RuntimeError, match="test_sync"):
         bad(xs[0])
+
+
+def test_program_spans_name_each_call_kind(card):
+    """Each program call is a ``program.<name>`` span of its kind (a key's
+    first call eager, its second the capture, then replays; under
+    ``eager()`` direct), and the first call's and the capture's host
+    seconds are the program's build seconds."""
+    from css_tpu_torch.utils import programs, trace
+
+    prog = programs.Program(lambda x: stft_mag_cuda.stft_mag(x + 1.0),
+                            "test_spans")
+    xs = [_signal((2, 4096), seed, card) for seed in range(4)]
+    before = programs.build_seconds()
+    trace.collect()
+    with trace.recording():
+        outs = [prog(x) for x in xs]
+        with programs.eager():
+            prog(xs[0])
+    raw = trace.collect()["raw"]
+    assert [(r["name"], r["attrs"]["kind"]) for r in raw] == [
+        ("program.test_spans", k)
+        for k in ("eager", "capture", "replay", "replay", "direct")]
+    s = prog.summary()
+    assert s["first_s"] > 0 and s["capture_s"] > 0
+    assert programs.build_seconds() == pytest.approx(
+        before + s["first_s"] + s["capture_s"])
+    for x, out in zip(xs, outs):  # the same outputs as with tracing off
+        assert torch.equal(out, prog(x))

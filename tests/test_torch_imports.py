@@ -54,7 +54,8 @@ print(" ".join(names))
                  "parallel.launch", "parallel.runner", "executor.sharded",
                  "cli.train_parallel", "utils.config", "cli.export",
                  "cli.import_torch", "cli.evaluate", "cli.prepare",
-                 "cli.wer", "cli.toy_asr", "utils.programs"):
+                 "cli.wer", "cli.toy_asr", "utils.programs",
+                 "utils.trace"):
         assert "css_tpu_torch." + name in names.split()
 
 
