@@ -19,7 +19,11 @@ Phases, each timed on its own line:
      control; then K2's phase split
      at the main shape in float32 and bf16 (mean clock64() cycles per step
      of barrier wait, staging of h_{t-1}, product, and gates with the
-     rest, from the kernel's optional phase record).
+     rest, from the kernel's optional phase record). Then KC, the
+     Conformer block's conv module with its residual add, at the
+     separator batch (32, 150, 256), K 33, in bf16 and float32 against the
+     plain chain (KC_* bounds): its event, device (torch.profiler) and
+     CUDA-graph times beside the plain chain's, and its bytes bound.
   3. Conformer path: the committed flagship checkpoint through
      ``CssPipeline.process`` on a 60 s synthetic 2-talker session, with
      launch counts and plain-route counts reset before and read after
@@ -28,7 +32,8 @@ Phases, each timed on its own line:
        (a) the flagship's own bf16 compute, with the kernels;
        (b) float32 compute (TF32 off), with the kernels;
        (p) float32 compute on the plain versions (no kernel launch);
-     (b) must match (p), and (a) must match (b) above an SI-SNR floor
+     KC launches once a block a separator batch in (a) and (b), none in
+     (p). (b) must match (p), and (a) must match (b) above an SI-SNR floor
      and a worst-segment SNR floor, which two stream-swapped copies of
      (b) must fail.
      Then stream re-anchoring (``executor/reanchor.py``) once on (b)'s
@@ -160,7 +165,7 @@ Phases, each timed on its own line:
            flagship (its bf16 compute) and of the full-width BLSTM (float32)
            at the separator batch (32, 150, 257), saved and loaded: seconds
            and bytes; the BLSTM's graph holds K2 as 6 registered-op nodes
-           and no unrolled loop, the Conformer's no op of the port's;
+           and no unrolled loop, the Conformer's KC as 16 op nodes;
        (b) ``Separator(None, exported_path=...)`` in the pipeline against
            the live separator on the session: masks (and the BLSTM's
            magnitudes) within SERVE_*_ATOL, each served run launching what
@@ -287,6 +292,12 @@ PEAK_HBM_BYTES = 3.35e12
 # same products in another order (tests/test_istft_pallas.py uses the
 # same tolerance for the TPU kernel against its XLA reference).
 KERNEL_ATOL, KERNEL_RTOL = 2e-4, 1e-4
+# KC (the conv module) keeps float32 inside and rounds once at its output:
+# in float32 it differs from the plain chain by summation order; in bf16 it
+# lies within one rounding (2^-8 relative) of the float32 chain
+# (tests/test_torch_cuda.py holds the same bounds)
+KC_ATOL, KC_RTOL = 2e-5, 1e-5
+KC_BF16_ATOL, KC_BF16_RTOL = 1e-4, 2.0 ** -8
 # Pipeline (b) vs (p): the feature magnitudes differ by ~1e-6 relative,
 # which moves the float32 masks and the peak-normalised (0.9) output by
 # far less than one 16-bit PCM step (3e-5); 1e-3 leaves room for a
@@ -744,16 +755,28 @@ def check_close(name, got, want, atol, rtol):
 
 @contextlib.contextmanager
 def plain_kernels(stft_mag_cuda, istft_cuda, lstm_cuda):
-    """Route the main paths through the kernels' plain versions."""
-    saved = stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused
+    """Route the main paths through the kernels' plain versions (the
+    Conformer's conv module through its composite, x + m(x))."""
+    from css_tpu_torch.ops import conv_module_cuda as ccm
+
+    saved = (stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused,
+             ccm.conv_module)
     stft_mag_cuda.stft_mag = stft_mag_cuda.stft_mag_plain
     istft_cuda.istft = istft_cuda.istft_plain
     lstm_cuda.lstm_fused = lstm_cuda.lstm_plain
+    ccm.conv_module = kc_plain
     try:
         yield
     finally:
-        (stft_mag_cuda.stft_mag, istft_cuda.istft,
-         lstm_cuda.lstm_fused) = saved
+        (stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused,
+         ccm.conv_module) = saved
+
+
+def kc_plain(m, x):
+    """The block's conv module and residual on the plain chain."""
+    from css_tpu_torch.ops import conv_module_cuda as ccm
+
+    return x + ccm.conv_module_plain(m, x)
 
 
 def lstm_work(b: int, t: int, h: int, elem: int):
@@ -1201,6 +1224,89 @@ def lstm_single_tf32(torch, xw, w_hh, hidden, state):
         h = torch.sigmoid(o) * torch.tanh(c)
         out[:, t] = h
     return out
+
+
+def kc_module(torch, dev, width: int = 256, kernel: int = 33, seed: int = 31):
+    """A Conformer ConvModule at the flagship's widths in eval on the card,
+    every parameter and BatchNorm statistic drawn off its init value from
+    a numpy seed."""
+    from css_tpu_torch.models.conformer import ConvModule
+
+    m = ConvModule(width, kernel)
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in m.state_dict().items():
+        n = rng.standard_normal(tuple(v.shape))
+        if k == "bn.running_var":
+            a = rng.uniform(0.1, 0.5, tuple(v.shape))
+        elif k == "dw_conv.weight":
+            a = n / np.sqrt(kernel)
+        elif k in ("layer_norm.weight", "pw1_w", "bn.weight", "pw2_w"):
+            a = 1.0 + 0.3 * n
+        else:
+            a = 0.3 * n
+        sd[k] = torch.as_tensor(a.astype(np.float32))
+    m.load_state_dict(sd)
+    return m.to(dev).eval()
+
+
+def kc_record(torch, dev, batch: int, frames: int):
+    """KC, the Conformer block's conv module with its residual add, at the
+    separator batch (batch, frames, 256), K 33, in bf16 (the flagship's
+    compute) and float32: launched once against the plain chain (float32
+    within KC_ATOL / KC_RTOL; bf16 within KC_BF16_* of the float32 chain
+    and no farther from the plain bf16 chain than its own error plus one
+    rounding); the event, profiler-device and CUDA-graph times beside the
+    plain chain's in a graph of the same calls, and the bytes bound."""
+    from css_tpu_torch.ops import conv_module_cuda as ccm
+
+    m = kc_module(torch, dev)
+    width = m.dw_conv.weight.shape[0]
+    rec = {"shape": [batch, frames, width, m.kernel_size]}
+    x32 = torch.as_tensor(np.random.default_rng(32).standard_normal(
+        (batch, frames, width)).astype(np.float32), device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        x = x32.to(dtype)
+        label = f"conv_module {name}"
+
+        def kernel():
+            with torch.no_grad():
+                return ccm.conv_module(m, x)
+
+        def plain():
+            with torch.no_grad():
+                return x + ccm.conv_module_plain(m, x)
+
+        got = counted(ccm.conv_module, 1, label, kernel)
+        want = plain()
+        with torch.no_grad():
+            ref = x.float() + ccm.conv_module_plain(m, x.float())
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            err = check_close(label, got, want, KC_ATOL, KC_RTOL)
+        else:
+            err = check_close(label, got.float(), ref, KC_BF16_ATOL,
+                              KC_BF16_RTOL)
+            own = float((want.float() - ref).abs().max())
+            gap = float((got.float() - want.float()).abs().max())
+            if gap > own + KC_BF16_RTOL * float(ref.abs().max()):
+                raise AssertionError(f"{label}: {gap:.3e} from the plain "
+                                     f"chain, whose own error is {own:.3e}")
+            rec["plain_bf16_err"] = own
+        bnd, by = bound_ms(2.0 * x.numel() * m.kernel_size,
+                           2.0 * x.numel() * x.element_size())
+        case = {"max_abs_err": err, "ms": time_ms(torch, kernel),
+                "plain_ms": time_ms(torch, plain),
+                "device_ms": device_ms(torch, kernel),
+                "plain_device_ms": device_ms(torch, plain),
+                "graph_ms": graph_ms(torch, kernel),
+                "plain_graph_ms": graph_ms(torch, plain),
+                "bound_ms": bnd, "bound_by": by}
+        log(f"KC {label} {tuple(x.shape)} K {m.kernel_size}: "
+            f"{json.dumps(case)}")
+        rec[name] = case
+    return rec
 
 
 def k2_stream_record(torch, lstm_cuda, dev):
@@ -2608,9 +2714,12 @@ def serve_path(torch, dev, results, run, mix, work) -> dict:
                 f"(a) the BLSTM's graph: {art['port_ops']} and "
                 f"{art['sigmoid_tanh_nodes']} sigmoid/tanh nodes, expected "
                 f"{n_k2} K2 op nodes and no unrolled loop")
-        if name == "conformer" and art["port_ops"]:
-            raise AssertionError(f"(a) the Conformer's graph holds ops of "
-                                 f"the port: {art['port_ops']}")
+        n_kc = len(model.conformer.encoders) if name == "conformer" else 0
+        if name == "conformer" and art["port_ops"] != [
+                "css_tpu_torch.conv_module.default"] * n_kc:
+            raise AssertionError(f"(a) the Conformer's graph: "
+                                 f"{art['port_ops']}, expected {n_kc} "
+                                 f"conv module op nodes")
         served = CssPipeline(model, CONFIG, device=dev)
         served.separator = served_separator(work / f"{name}.pt2", dev)
         wav = pad_for_windows(torch.as_tensor(mix, device=dev),
@@ -3341,6 +3450,7 @@ def main() -> int:
     from css_tpu_torch.executor.reanchor import reanchor_streams
     from css_tpu_torch.ops import (_build, istft_cuda, lstm_cuda, native,
                                    stft_mag_cuda)
+    from css_tpu_torch.ops import conv_module_cuda as ccm
     from css_tpu_torch.ops import stft as stft_ops
 
     # ---------------------------------------------------------- 1. device
@@ -3599,6 +3709,8 @@ def main() -> int:
     del xw, w_hh, xw32, w_hh32
     # K2 with a carried state at the hop path's chunk (phase 8's shape)
     k2_stream = k2_stream_record(torch, lstm_cuda, dev)
+    # KC, the Conformer's conv module, at the separator batch
+    kc = kc_record(torch, dev, batch, n_frames)
     main2 = lstm_cases[0]  # hidden 512, float32, forward: the BLSTM's
     results.append({
         "name": "lstm_fused", "route": "cuda",
@@ -3664,7 +3776,11 @@ def main() -> int:
     expect = {"stft_mag": n_batches, "istft": 1, "lstm_fused": 0}
 
     out_a, counts_a, cold_a = run(pipe, mix, "a bf16 (cold)", expect)
-    _, _, warm_a = run(pipe, mix, "a bf16 (warm)", expect)
+    # KC once a block a separator batch, through the replays
+    n_kc = len(model.conformer.encoders) * n_batches
+    _, _, warm_a = counted(ccm.conv_module, n_kc, "a bf16 (warm) KC",
+                           lambda: run(pipe, mix, "a bf16 (warm)", expect))
+    kc["launches"] = f"{n_kc} a {SESSION_SEC:.0f} s session"
     for r in results:
         if r["name"] != "lstm_fused":
             r["launches"] = counts_a[r["name"]]
@@ -3675,8 +3791,10 @@ def main() -> int:
           flush=True)
 
     model.compute_dtype = torch.float32
-    out_b, _, warm_b = run(pipe, mix, "b float32", expect)
-    out_p, _ = plain_run(pipe, mix, "p float32 plain")
+    out_b, _, warm_b = counted(ccm.conv_module, n_kc, "b float32 KC",
+                               lambda: run(pipe, mix, "b float32", expect))
+    out_p, _ = counted(ccm.conv_module, 0, "p float32 plain KC",
+                       lambda: plain_run(pipe, mix, "p float32 plain"))
     model.compute_dtype = torch.bfloat16
     pipe_err = max(float(np.abs(p - q).max()) for p, q in zip(out_b, out_p))
     if pipe_err > PIPE_ATOL:
@@ -3975,6 +4093,14 @@ def main() -> int:
           f"{rec11['cli_train']['losses']}; {smi_line}", flush=True)
     phase("programs", t0)
 
+    results.append({
+        "name": "conv_module", "route": "cuda",
+        "source": "css_tpu_torch/csrc/conv_module.cu", "replaces": None,
+        "launches": kc.pop("launches"),
+        "max_abs_err": kc["float32"]["max_abs_err"],
+        **{k: kc["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "device_ms")},
+        "library_ms": None, "cases": kc})
     print(json.dumps({"kernels": results}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

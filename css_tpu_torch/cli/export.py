@@ -9,7 +9,9 @@ Separator serves it through ``exported_path=``. The BLSTM's LSTM
 recurrence is the registered op ``css_tpu_torch::lstm_fused``
 (``ops/lstm_cuda.py``), so its artifact keeps K2 as one graph node per
 (layer, direction), and a loaded artifact launches K2 on the card as the
-live model does; ``load_exported`` imports that module so the op is
+live model does; so does a Conformer exported on the card with its conv
+modules (``css_tpu_torch::conv_module``, ``ops/conv_module_cuda.py``, one
+node a block). ``load_exported`` imports both modules so the ops are
 registered before the archive is read. The artifact holds the weights on
 the device it was exported on, and serves there.
 
@@ -71,7 +73,8 @@ def input_shape(program) -> tuple:
 def load_exported(path: str):
     """A ``.pt2`` artifact -> a callable module f (B, T, F) -> masks, with
     ``input_shape`` (B, T, F), the shape it was exported at."""
-    from css_tpu_torch.ops import lstm_cuda  # noqa: F401 - registers K2's op
+    # register the port's ops (K2, the conv module) before the archive is read
+    from css_tpu_torch.ops import conv_module_cuda, lstm_cuda  # noqa: F401
 
     program = torch.export.load(str(path))
     module = program.module()

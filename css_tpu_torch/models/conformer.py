@@ -25,6 +25,10 @@ conf says ``bf16``) is applied where the JAX package applies it:
   * attention scores, their scale and the relative-position term stay in
     the compute dtype, with a cast to float32 only at the softmax input
     and back after it (``conformer.py:91-105``).
+On the card, a block in eval with no gradient recorded computes its conv
+module and the residual add after it as one kernel
+(``ops/conv_module_cuda.py``: float32 inside, one rounding at its output);
+training, the hop stream and the CPU run the module's composite.
 
 ``causal=True`` (``conformer_causal`` in a checkpoint's conf) is the
 streamable variant: running MVN (``cumulative_mvn``), attention banded to
@@ -55,6 +59,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from css_tpu_torch.ops import conv_module_cuda
 from css_tpu_torch.ops.features import cumulative_mvn, mvn
 from css_tpu_torch.parallel.mesh import (all_reduce_sum, copy_to,
                                          group_size, reduce_from)
@@ -320,17 +325,16 @@ class ConvModule(nn.Module):
         return self.drop(self.pw2_w.to(dt)[0] * x + self.pw2_b.to(dt)[0])
 
     def forward(self, x):
-        x, k = self._glu(x), self.kernel_size
-        if self.causal:  # k - 1 zero frames before the first, none after
-            return self._post(self._dw_conv(F.pad(x, (0, 0, k - 1, 0))))
-        return self._post(self._dw_conv(x, (k - 1) // 2))
+        return conv_module_cuda.conv_module_plain(self, x)
 
     def stream(self, x, tail):
         """A causal chunk (B, Tc, C) after the carried tail (B, k - 1, C) of
         GLU outputs -> (out, the new tail). A zero tail is the causal left
-        padding, so chained chunks give the causal forward."""
+        padding, so chained chunks give the causal forward. The kernel
+        takes no tail: on the card this is a plain route, counted."""
         if not self.causal:
             raise ValueError("stream() requires causal=True")
+        conv_module_cuda.count_plain(x)
         full = torch.cat([tail.to(x.dtype), self._glu(x)], dim=1)
         out = self._post(self._dw_conv(full))
         # kernel_size 1 carries no context ([-0:] would keep everything)
@@ -356,7 +360,7 @@ class EncoderLayer(nn.Module):
     def forward(self, x, pos_k, mask=None):
         x = x + 0.5 * self.feed_forward_in(x)
         x = x + self.self_attn(x, pos_k, mask)
-        x = x + self.conv(x)
+        x = conv_module_cuda.conv_module(self.conv, x)  # x + self.conv(x)
         x = x + 0.5 * self.feed_forward_out(x)
         return self.layer_norm(x)
 

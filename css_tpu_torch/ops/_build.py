@@ -37,12 +37,14 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints)
 SIGNATURES = {
     "css_istft": [_P] * 5 + [_I] * 5 + [_P],
     "css_stft_mag": [_P] * 4 + [_I] * 7 + [_P],
     "css_lstm": [_P] * 8 + [_I] * 13 + [_P],
+    "css_conv_module": [_P] * 14 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P],
 }
 
 

@@ -15,15 +15,19 @@ masks up to 4.5, against max 0.05 between bf16 and float32): 0.1 max and
 1e-2 mean absolute.
 """
 
+import types
+
 import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from css_tpu.models import conformer as jc
 from css_tpu_torch.models import conformer as tc
+from css_tpu_torch.ops import conv_module_cuda as ccm
 
 SMALL = dict(attention_dim=64, attention_heads=4, linear_units=128,
              num_blocks=2, kernel_size=7)
@@ -231,3 +235,193 @@ def test_relative_position_gradient_is_deterministic_on_the_cpu():
     (pe64[idx + enc.maxlen] * upstream.double()).sum().backward()
     torch.testing.assert_close(grads[0], pe64.grad.float(), rtol=1e-5,
                                atol=1e-4)
+
+
+# ------------------------------------------------ the conv module's route
+# (ops/conv_module_cuda.py: the kernel runs only on the card, its route and
+# operator are held here)
+
+
+def _forward_before_the_kernel(m, x):
+    """ConvModule.forward as it read before the kernel's route."""
+    x, k = m._glu(x), m.kernel_size
+    if m.causal:
+        return m._post(m._dw_conv(F.pad(x, (0, 0, k - 1, 0))))
+    return m._post(m._dw_conv(x, (k - 1) // 2))
+
+
+def _conv(small_pair, causal=False, width=64, kernel=7):
+    """A copy of block 1's conv module of the small pair (its BatchNorm
+    statistics and GLU parameters moved off their init), offline or
+    causal, in eval; at other widths a fresh module."""
+    m = tc.ConvModule(width, kernel, causal=causal)
+    if width == 64 and kernel == 7:
+        m.load_state_dict(small_pair[2].conformer.encoders[1].conv
+                          .state_dict())
+    return m.eval()
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["offline", "causal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conv_module_plain_is_the_forward_before_the_kernel(small_pair,
+                                                            causal, dtype):
+    """conv_module_plain is the module's forward as it was, bit for bit,
+    and on the CPU the block's route is x + m(x) with nothing counted: the
+    CPU parity with css_tpu is untouched."""
+    m = _conv(small_pair, causal)
+    x = torch.as_tensor(_x((2, 30, 64), 6)).to(dtype)
+    before = ccm.conv_module.launches, ccm.conv_module.plain_routes
+    with torch.no_grad():
+        want = _forward_before_the_kernel(m, x)
+        assert torch.equal(ccm.conv_module_plain(m, x), want)
+        assert torch.equal(m(x), want)
+        assert torch.equal(ccm.conv_module(m, x), x + want)
+    assert (ccm.conv_module.launches,
+            ccm.conv_module.plain_routes) == before
+
+
+def _on_card(shape, dtype=torch.bfloat16):
+    """What takes_kernel reads of a CUDA tensor, without a card."""
+    return types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
+                                 ndim=len(shape), shape=tuple(shape))
+
+
+# case -> (module kwargs for _conv, x, train mode, grad on, takes it)
+ROUTES = {
+    "bf16": ({}, _on_card((32, 150, 64)), False, False, True),
+    "float32": ({}, _on_card((32, 150, 64), torch.float32), False, False,
+                True),
+    "causal": ({"causal": True}, _on_card((1, 8, 64)), False, False, True),
+    "full_width": ({"width": 256, "kernel": 33}, _on_card((32, 150, 256)),
+                   False, False, True),
+    "causal_even_kernel": ({"causal": True, "kernel": 6},
+                           _on_card((2, 20, 64)), False, False, True),
+    "cpu": ({}, torch.zeros((2, 20, 64)), False, False, False),
+    "train_mode": ({}, _on_card((32, 150, 64)), True, False, False),
+    "grad_on": ({}, _on_card((32, 150, 64)), False, True, False),
+    "float16": ({}, _on_card((32, 150, 64), torch.float16), False, False,
+                False),
+    "wide": ({"width": 512}, _on_card((2, 20, 512)), False, False, False),
+    "width_not_4n": ({"width": 62}, _on_card((2, 20, 62)), False, False,
+                     False),
+    "long_kernel": ({"kernel": 35}, _on_card((2, 20, 64)), False, False,
+                    False),
+    "offline_even_kernel": ({"kernel": 6}, _on_card((2, 20, 64)), False,
+                            False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_conv_module_takes_the_kernel_only_where_it_applies(small_pair,
+                                                           case):
+    """takes_kernel: x on CUDA in float32 or bf16, the module in eval, no
+    gradient recorded, C <= 256 a multiple of 4 and K <= 33 with T frames
+    kept; every
+    other case (training, grad on, float16, widths past the plan, the
+    CPU) is the plain route."""
+    kwargs, x, train, grad, takes = ROUTES[case]
+    m = _conv(small_pair, **kwargs).train(train)
+    with torch.set_grad_enabled(grad):
+        assert ccm.takes_kernel(m, x) is takes
+
+
+def test_conv_module_float16_parameters_take_the_plain_route(small_pair):
+    m = _conv(small_pair).half()
+    with torch.no_grad():
+        assert not ccm.takes_kernel(m, _on_card((2, 20, 64)))
+
+
+def test_conv_module_plain_routes_are_counted_off_the_cpu():
+    before = ccm.conv_module.plain_routes
+    ccm.count_plain(torch.zeros(1))
+    assert ccm.conv_module.plain_routes == before
+    ccm.count_plain(_on_card((1, 1, 1)))
+    assert ccm.conv_module.plain_routes == before + 1
+    ccm.conv_module.plain_routes = before
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["offline", "causal"])
+def test_conv_module_route_through_the_operator(small_pair, monkeypatch,
+                                                causal):
+    """With the route forced on the CPU, every block's conv module runs
+    through the registered operator (its CPU kernel: the kernel's function
+    in float32): the block's operands, padding and eps as the card passes
+    them give the plain model's masks."""
+    conf = {"conformer_attention_dim": 64, "conformer_attention_heads": 4,
+            "conformer_linear_units": 128, "conformer_num_blocks": 2,
+            "conformer_kernel_size": 7, "conformer_causal": causal}
+    tm = tc.build_model(conf)
+    tm.load_state_dict(small_pair[2].state_dict())
+    f = torch.as_tensor(np.abs(_x((2, 40, 257), 7)))
+    with torch.no_grad():
+        _, want = tm.eval()(f)
+        calls = []
+        op = ccm.conv_module_op
+
+        def counted_op(*args):
+            calls.append(args[2:4])
+            return op(*args)
+
+        monkeypatch.setattr(ccm, "takes_kernel", lambda m, x: True)
+        monkeypatch.setattr(ccm, "conv_module_op", counted_op)
+        _, got = tm(f)
+    pad = (6, 0) if causal else (3, 3)
+    assert calls == [pad, pad]
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["offline", "causal"])
+def test_conv_module_operator_is_the_float32_function(small_pair, causal):
+    """The operator's CPU kernel against the module in float32, and in
+    bf16 within the one rounding at its output of the float32 function
+    (the plain bf16 chain, rounding at almost every op, lies farther)."""
+    m = _conv(small_pair, causal)
+    pad = ccm.padding(m)
+    params = [p.detach() for p in ccm._params(m)]
+    x = torch.as_tensor(_x((3, 37, 64), 8))
+    with torch.no_grad():
+        got = ccm.conv_module_op(x, params, *pad, 1e-5, m.bn.eps)
+        torch.testing.assert_close(got, x + m(x), atol=1e-6, rtol=1e-6)
+        xb = x.bfloat16()
+        ref = xb.float() + m(xb.float())
+        got = ccm.conv_module_op(xb, params, *pad, 1e-5, m.bn.eps)
+        plain = xb + m(xb)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref, atol=0, rtol=2.0 ** -8)
+    assert (got.float() - ref).abs().max() < (plain.float() - ref).abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conv_module_operator_fake_and_schema(small_pair, dtype):
+    """The fake kernel gives x's shape and dtype (what torch.export
+    traces); opcheck holds the schema, the fake against the CPU kernel and
+    no aliasing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    m = _conv(small_pair)
+    params = [p.detach() for p in ccm._params(m)]
+    with FakeTensorMode():
+        fx = torch.empty((4, 150, 64), dtype=dtype)
+        out = ccm.conv_module_op(fx, [torch.empty(p.shape) for p in params],
+                                 3, 3, 1e-5, 1e-5)
+    assert out.shape == (4, 150, 64) and out.dtype == dtype
+    x = torch.as_tensor(_x((2, 20, 64), 9)).to(dtype)
+    torch.library.opcheck(ccm.conv_module_op, (x, params, 3, 3, 1e-5, 1e-5))
+
+
+@pytest.mark.parametrize("case", ["padding", "dtype", "wide", "width_not_4n"])
+def test_conv_module_operator_refuses_what_the_kernel_does_not_take(
+        small_pair, case):
+    width = {"wide": 512, "width_not_4n": 62}.get(case, 64)
+    m = _conv(small_pair, width=width)
+    params = [p.detach() for p in ccm._params(m)]
+    x = torch.zeros((2, 20, params[0].shape[0]))
+    pad = (3, 3)
+    if case == "padding":
+        pad = (3, 2)
+    elif case == "dtype":
+        params[7] = params[7].double()
+    with pytest.raises(ValueError):
+        ccm.conv_module_op(x, params, *pad, 1e-5, 1e-5)

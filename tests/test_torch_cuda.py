@@ -15,12 +15,18 @@ into later steps: 3e-2 absolute (about 8 such steps). K2 in float32 is
 held also to 5e-6 absolute (chip_smoke.py's LSTM_F32_MAX_ERR): its 3xTF32
 product keeps ~21 of float32's 24 bits, and a single-TF32 product of the
 same function fails that bound (test_lstm_f32_bound_catches_single_tf32).
+The conv module's kernel (KC) keeps float32 inside and rounds once: in
+float32 it differs from the plain chain by summation order, 2e-5 absolute
+and 1e-5 relative; in bf16 it lies within one rounding (2^-8 relative)
+of the float32 chain, and no farther from the plain bf16 chain than that
+chain's own rounding error plus one rounding.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from css_tpu_torch.ops import conv_module_cuda as ccm
 from css_tpu_torch.ops import istft_cuda, lstm_cuda, stft_mag_cuda
 from css_tpu_torch.ops import stft as stft_ops
 
@@ -657,3 +663,148 @@ def test_program_spans_name_each_call_kind(card):
         before + s["first_s"] + s["capture_s"])
     for x, out in zip(xs, outs):  # the same outputs as with tracing off
         assert torch.equal(out, prog(x))
+
+
+def _conv_module(width, kernel, causal, seed, dev):
+    """A Conformer ConvModule in eval on the card, every parameter and
+    BatchNorm statistic drawn off its init value from a numpy seed."""
+    from css_tpu_torch.models.conformer import ConvModule
+
+    m = ConvModule(width, kernel, causal=causal)
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in m.state_dict().items():
+        n = rng.standard_normal(tuple(v.shape))
+        if k == "bn.running_var":
+            a = rng.uniform(0.1, 0.5, tuple(v.shape))
+        elif k == "dw_conv.weight":
+            a = n / np.sqrt(kernel)
+        elif k in ("layer_norm.weight", "pw1_w", "bn.weight", "pw2_w"):
+            a = 1.0 + 0.3 * n
+        else:
+            a = 0.3 * n
+        sd[k] = torch.as_tensor(a.astype(np.float32))
+    m.load_state_dict(sd)
+    return m.to(dev).eval()
+
+
+# case -> (B, T, C, K, causal): the separator batch of the Conformer cell,
+# T not a multiple of the kernel's 16-frame tile, batch 1, causal left
+# padding, and a narrow module with a short kernel
+CONV_CASES = {"cell": (32, 150, 256, 33, False),
+              "ragged_t": (3, 37, 256, 33, False),
+              "batch1": (1, 150, 256, 33, False),
+              "causal": (4, 150, 256, 33, True),
+              "narrow": (2, 20, 64, 7, False)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_conv_module_kernel_matches_plain(card, case, dtype):
+    b, t, c, k, causal = CONV_CASES[case]
+    m = _conv_module(c, k, causal, 1, card)
+    x = (_signal((b, t, c), 2, card) * 10.0).to(dtype)
+    before = ccm.conv_module.launches, ccm.conv_module.plain_routes
+    with torch.no_grad():
+        got = ccm.conv_module(m, x)
+        torch.cuda.synchronize()
+        assert (ccm.conv_module.launches,
+                ccm.conv_module.plain_routes) == (before[0] + 1, before[1])
+        plain = x + ccm.conv_module_plain(m, x)
+        ref = x.float() + ccm.conv_module_plain(m, x.float())
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, plain, atol=2e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref, atol=1e-4,
+                                   rtol=2.0 ** -8)
+        own = float((plain.float() - ref).abs().max())
+        gap = float((got.float() - plain.float()).abs().max())
+        assert gap <= own + 2.0 ** -8 * float(ref.abs().max())
+
+
+def test_conv_module_replay_is_bit_equal_to_eager(card):
+    """The kernel captured in a program: every replay counted once, each
+    output bit-equal to an eager call on the same input."""
+    from css_tpu_torch.utils import programs
+
+    m = _conv_module(256, 33, False, 3, card)
+    prog = programs.Program(lambda x: ccm.conv_module(m, x), "test_kc")
+    xs = [(_signal((32, 150, 256), s, card) * 10.0).bfloat16()
+          for s in range(4)]
+    before = ccm.conv_module.launches, ccm.conv_module.plain_routes
+    with torch.no_grad():
+        outs = [prog(x) for x in xs]
+        torch.cuda.synchronize()
+        assert ccm.conv_module.launches == before[0] + len(xs)
+        eager = [ccm.conv_module(m, x) for x in xs]
+    assert ccm.conv_module.launches == before[0] + 2 * len(xs)
+    assert ccm.conv_module.plain_routes == before[1]
+    assert prog.summary()["replays"] == len(xs) - 1
+    for out, want in zip(outs, eager):
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conv_module_op_cuda_kernel_passes_opcheck(card, dtype):
+    m = _conv_module(64, 7, True, 4, card)
+    params = [p.detach() for p in ccm._params(m)]
+    x = _signal((3, 21, 64), 5, card).to(dtype)
+    before = ccm.conv_module.launches
+    torch.library.opcheck(ccm.conv_module_op, (x, params, 6, 0, 1e-5, 1e-5))
+    assert ccm.conv_module.launches > before
+
+
+def test_conformer_routes_its_conv_modules_on_the_card(card):
+    """A small Conformer on the card: in eval with no gradient each block
+    launches the kernel; in training each block takes the plain route,
+    counted; a float16 input takes it too."""
+    from css_tpu_torch.models.conformer import Conformer
+
+    conf = {"conformer_attention_dim": 64, "conformer_attention_heads": 4,
+            "conformer_linear_units": 128, "conformer_num_blocks": 2,
+            "conformer_kernel_size": 7, "conformer_dropout_rate": 0.0}
+    model = Conformer.build_model(conf).to(card)
+    f = _signal((2, 40, 257), 6, card).abs()
+    launches, routes = ccm.conv_module.launches, ccm.conv_module.plain_routes
+    with torch.no_grad():
+        model.eval()(f)
+    assert ccm.conv_module.launches == launches + 2
+    model.train()(f)[1].sum().backward()
+    assert ccm.conv_module.plain_routes == routes + 2
+    block = model.eval().conformer.encoders[0].conv
+    with torch.no_grad():
+        ccm.conv_module(block, _signal((1, 8, 64), 7, card).half())
+    assert ccm.conv_module.plain_routes == routes + 3
+    assert ccm.conv_module.launches == launches + 2
+
+
+def test_exported_conformer_keeps_the_conv_module_op(card, tmp_path):
+    """A small Conformer exported with torch.export on the card holds its
+    conv modules as one css_tpu_torch::conv_module node a block, and the
+    served artifact launches the kernel as the live model does."""
+    from css_tpu_torch.cli import export
+    from css_tpu_torch.models.conformer import Conformer
+
+    conf = {"conformer_attention_dim": 64, "conformer_attention_heads": 4,
+            "conformer_linear_units": 128, "conformer_num_blocks": 2,
+            "conformer_kernel_size": 7, "conformer_dropout_rate": 0.0}
+    model = Conformer.build_model(conf)
+    program = export.export_forward(model, 4, 150, 257, card)
+    ops = [str(n.target) for n in program.graph.nodes
+           if n.op == "call_function"
+           and str(n.target).startswith("css_tpu_torch.")]
+    assert ops == ["css_tpu_torch.conv_module.default"] * 2
+    torch.export.save(program, tmp_path / "c.pt2")
+    served = export.load_exported(tmp_path / "c.pt2")
+    f = _signal((4, 150, 257), 8, card).abs()
+    before = ccm.conv_module.launches
+    with torch.no_grad():
+        got = served(f)
+        torch.cuda.synchronize()
+        assert ccm.conv_module.launches == before + 2
+        want = torch.clamp(model(f)[1], max=1.0)
+    assert ccm.conv_module.launches == before + 4
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
