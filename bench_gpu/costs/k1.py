@@ -7,6 +7,7 @@ import math
 from bench_gpu.costs import peaks
 
 NAME = "istft_kernel"
+PROGRAM = ("istft_cuda", "istft")
 
 
 def work(rows: int, frames: int, bins: int = 257, hop: int = 256):
@@ -21,6 +22,17 @@ def work(rows: int, frames: int, bins: int = 257, hop: int = 256):
               + 4 * (2 * hop + 2 * (n_fft - 1) + 3 * hop)
               + 4 * rows * (frames + 1) * hop)
     return flops, nbytes
+
+
+def shape(config: dict, geo: dict):
+    """One launch a session: every window's speaker streams, at the
+    separator's frames a window; under Souden MVDR through the centered
+    entry, at the window's centered frames (``win // hop + 1``)."""
+    bf = config["pipeline"]["beamforming"]
+    frames = geo["frames"]
+    if bf.get("type") == "souden_mvdr":
+        frames = geo["win"] // int(bf["hop_size"]) + 1
+    return {"rows": geo["windows"] * geo["streams"], "frames": frames}
 
 
 def bound_seconds(**shape) -> float:

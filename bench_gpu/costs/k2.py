@@ -4,6 +4,7 @@
 from bench_gpu.costs import peaks
 
 NAME = "lstm_kernel"
+PROGRAM = ("lstm_cuda", "lstm_fused")
 
 
 def work(batch: int, steps: int, hidden: int, elem: int = 4):
@@ -14,6 +15,16 @@ def work(batch: int, steps: int, hidden: int, elem: int = 4):
     nbytes = elem * (batch * steps * 4 * hidden + hidden * 4 * hidden
                      + batch * steps * hidden)
     return flops, nbytes
+
+
+def shape(config: dict, geo: dict):
+    """One direction of one layer over a separator batch; None for a model
+    without an LSTM of ``hidden_dim`` (split between the directions)."""
+    if "hidden_dim" not in config["widths"]:
+        return None
+    return {"batch": geo["batch"], "steps": geo["frames"],
+            "hidden": config["widths"]["hidden_dim"] // 2,
+            "elem": geo["elem"]}
 
 
 def bound_seconds(**shape) -> float:

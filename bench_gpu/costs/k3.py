@@ -6,6 +6,7 @@ import math
 from bench_gpu.costs import peaks
 
 NAME = "stft_mag_kernel"  # the kernel's symbol in the device trace
+PROGRAM = ("stft_mag_cuda", "stft_mag")
 
 
 def work(rows: int, n: int, frame_len: int = 512, hop: int = 256):
@@ -20,6 +21,11 @@ def work(rows: int, n: int, frame_len: int = 512, hop: int = 256):
     nbytes = 4 * (rows * n + frame_len + 2 * (frame_len - 1)
                   + rows * frames * bins)
     return flops, nbytes
+
+
+def shape(config: dict, geo: dict):
+    """One launch a separator batch, over its windows."""
+    return {"rows": geo["batch"], "n": geo["win"]}
 
 
 def bound_seconds(**shape) -> float:

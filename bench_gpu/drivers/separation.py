@@ -2,8 +2,10 @@
 
 Set-up: the model with the seed's weights, the program's ``CssPipeline``
 under the configuration's pipeline settings, and a pool of
-``traffic['pool']`` sessions made from the seed (``harness/sessions.py``)
-and copied to the host, where the pipeline takes recordings; then
+``traffic['pool']`` sessions made from the seed (``harness/sessions.py``:
+(T,), or (channels, T) where the traffic's ``session`` names more than
+one channel) and copied to the host, where the pipeline takes
+recordings; then
 ``warm_sessions`` calls of ``CssPipeline.process``, which build the
 kernels, run the separator's forward eagerly once and capture it.
 
@@ -21,15 +23,22 @@ continuous_process``, each ended by a synchronise.
 Check: ``check_sessions`` sessions drawn from the seed among those the
 window finished (a reservoir), their streams kept as the window returned
 them. Once the window is closed and the program freed, the reference
-(``reference/separation.py`` with the configuration's model, float32,
-TF32 off, the same weights re-made from the seed) separates each drawn
-session's recording, and ``errors`` takes the streams' relative errors;
-the configuration's ``limits`` name the ones compared.
+separates each drawn session's recording: the configuration's pipeline
+reference (``pipeline_reference``, ``reference/separation.py`` where it
+names none) around its model reference (``reference``), float32, TF32
+off, the same weights re-made from the seed; ``errors`` takes the
+streams' relative errors, and the configuration's ``limits`` name the
+ones compared. So a configuration with another pipeline (more channels,
+another beamformer) brings a configuration, a traffic file and a
+reference, and runs through this driver.
+
+``TINY``: the overrides that cut this driver's cells to a CPU test's size.
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -37,12 +46,20 @@ import torch
 
 from bench_gpu.harness import manifest, readers, sessions
 from bench_gpu.harness.setup import (Launches, Outcome, Reservoir, free,
-                                     memory_peak, program_model, reference,
-                                     weights_for)
-from bench_gpu.reference import separation as ref_sep
+                                     memory_peak, pipeline_reference,
+                                     program_model, reference, weights_for)
 from bench_gpu.reference.precision import strict_float32
 
 ELEM = {"float32": 4, "bfloat16": 2}
+
+TINY = {
+    "config": {"widths": {"num_blocks": 1, "num_layers": 1,
+                          "hidden_dim": 64},
+               "program_conf": {"conformer_num_blocks": 1,
+                                "blstm_num_layers": 1,
+                                "blstm_hdim": 64}},
+    "traffic": {"session": {"seconds": 5}, "pool": 2,
+                "warm_sessions": 1, "check_sessions": 2}}
 
 
 def make_pool(traffic: Dict, seed: int, device) -> List[np.ndarray]:
@@ -102,26 +119,29 @@ def errors(outs: Tuple[np.ndarray, ...], refs: Tuple[torch.Tensor, ...],
 
 
 def reference_streams(config: Dict, p: Dict, wav: np.ndarray, device,
-                      mode: str = "f32") -> Tuple[torch.Tensor, ...]:
+                      mode: str = "f32", root: Path = manifest.ROOT
+                      ) -> Tuple[torch.Tensor, ...]:
     """The reference's streams of one recording with weights ``p``, in
     precision ``mode``."""
     strict_float32()
-    ref = reference(config)
+    ref = reference(config, root)
     widths = config["widths"]
-    return ref_sep.separate(
+    return pipeline_reference(config, root).separate(
         torch.as_tensor(wav, device=device),
         lambda feats: ref.masks(p, feats, widths, mode=mode),
         config["pipeline"], widths["num_spk"])
 
 
 def judge(config: Dict, traffic: Dict, seed: int, sample, pool, device,
-          mode: str = "f32") -> List[Dict[str, float]]:
+          mode: str = "f32", root: Path = manifest.ROOT
+          ) -> List[Dict[str, float]]:
     """The numbers compared, one dict a drawn session of ``sample``
     [(pool index, streams)]."""
     frame = int(config["pipeline"]["separation"]["frame_length"])
-    p = weights_for(config, seed, device)
-    return [errors(outs, reference_streams(config, p, pool[i], device, mode),
-                   frame) for i, outs in sample]
+    p = weights_for(config, seed, device, root)
+    return [errors(outs, reference_streams(config, p, pool[i], device, mode,
+                                           root), frame)
+            for i, outs in sample]
 
 
 def run(cell, seed: int, seconds: float, device, tracer, t0: float,
@@ -129,7 +149,7 @@ def run(cell, seed: int, seconds: float, device, tracer, t0: float,
     from css_tpu_torch.executor.pipeline import CssPipeline
 
     cfg, traffic = cell.config, cell.traffic
-    model = program_model(cfg, seed, device)
+    model = program_model(cfg, seed, device, cell.root)
     pipe = CssPipeline(model, cfg["pipeline"], device=device)
     pool = make_pool(traffic, seed, device)
     if "pipeline" in hooks:  # tests: break the timed path underneath
@@ -150,7 +170,7 @@ def run(cell, seed: int, seconds: float, device, tracer, t0: float,
     if tracer.enabled:  # a traced window may be shorter (the trace's size)
         seconds = min(seconds, float(traffic.get("trace_seconds", seconds)))
     sample = Reservoir(int(traffic["check_sessions"]), seed)
-    launches = Launches()
+    launches = Launches(cell.root)
     done = 0
     with tracer.window():
         start = time.perf_counter()
@@ -169,12 +189,14 @@ def run(cell, seed: int, seconds: float, device, tracer, t0: float,
     sec = float(traffic["session"]["seconds"])
     rec = None
     if tracer.enabled:
-        rec = _record(cell, pipe, pool, tracer, done, counts)
+        rec = _record(cell, pipe, pool, tracer, done, counts,
+                      launches.missing)
     del pipe, model
     free(device)
 
     limits = cfg["limits"]["separation"]
-    judged = judge(cfg, traffic, seed, sample.items, pool, device)
+    judged = judge(cfg, traffic, seed, sample.items, pool, device,
+                   root=cell.root)
     checks = {k: {"value": max((j[k] for j in judged), default=None),
                   "limit": v} for k, v in limits.items()}
     failed = sum(any(j[k] > v for k, v in limits.items()) for j in judged)
@@ -185,29 +207,35 @@ def run(cell, seed: int, seconds: float, device, tracer, t0: float,
                    checks=checks, memory_peak=peak, record=rec)
 
 
-def _record(cell, pipe, pool, tracer, done, counts) -> readers.Record:
+def _record(cell, pipe, pool, tracer, done, counts: Dict[str, int],
+            missing: Dict[str, str]) -> readers.Record:
     """What the readers read: the window's counts and, by kernel, its
-    launches with the shapes this cell gives them."""
+    launches with the shape each cost file gives them (``shape``) at this
+    cell's geometry."""
     sep = pipe.separator
     n = pool[0].shape[-1]
     total = n if n >= sep.win else sep.win
     windows = max(1, -(-(total - sep.win) // sep.hop) + 1)
-    batches = -(-windows // sep.batch_size)
-    frames = (sep.win - sep.features.frame_len) // sep.features.frame_hop + 1
-    k = pipe.num_spk
     cfg = cell.config
+    geo = {"batch": sep.batch_size, "win": sep.win, "hop": sep.hop,
+           "frames": (sep.win - sep.features.frame_len)
+           // sep.features.frame_hop + 1,
+           "windows": windows, "batches": -(-windows // sep.batch_size),
+           "samples": n, "channels": pool[0].shape[0] if pool[0].ndim == 2
+           else 1, "streams": pipe.num_spk, "elem": ELEM[cfg["dtype"]]}
     cost = manifest.cost(cell.config_name, cell.root)
-    rec = readers.Record(tracer=tracer, config=cfg, root=cell.root)
+    rec = readers.Record(tracer=tracer, config=cfg, root=cell.root,
+                         missing=dict(missing))
     rec.counts = {"sessions": done,
-                  "model_flops": done * batches * cost.forward_flops(
-                      cfg["widths"], sep.batch_size, frames)}
-    rec.work = {
-        "k3": [(counts["k3"], {"rows": sep.batch_size, "n": sep.win})],
-        "k1": [(counts["k1"], {"rows": windows * k, "frames": frames})],
-    }
-    if counts["k2"]:
-        hidden = cfg["widths"]["hidden_dim"] // 2
-        rec.work["k2"] = [(counts["k2"], {"batch": sep.batch_size,
-                                          "steps": frames, "hidden": hidden,
-                                          "elem": ELEM[cfg["dtype"]]})]
+                  "model_flops": done * geo["batches"] * cost.forward_flops(
+                      cfg["widths"], sep.batch_size, geo["frames"])}
+    for key, count in counts.items():
+        if not count or key in rec.missing:
+            continue
+        shape = manifest.cost(key, cell.root).shape(cfg, geo)
+        if shape is None:
+            rec.why.append(f"{key}: {count} launches, and the cell gives "
+                           "them no shape")
+            continue
+        rec.work[key] = [(count, shape)]
     return rec

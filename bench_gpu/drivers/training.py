@@ -33,12 +33,15 @@ worst leaf: | |prog| - |ref| | over the larger of the reference leaf's
 norm and the median leaf's. Leaves whose first reference gradient is
 under 1e-3 of the median leaf's (a key's bias under softmax) move by
 round-off alone and are left out of the change.
+
+``TINY``: the overrides that cut this driver's cells to a CPU test's size.
 """
 
 from __future__ import annotations
 
 import statistics
 import time
+from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
@@ -51,6 +54,17 @@ from bench_gpu.reference import training as ref_train
 from bench_gpu.reference.precision import strict_float32
 
 NOISE_FLOOR = 1e-3  # of the median leaf's first gradient: left out
+
+TINY = {
+    "config": {"widths": {"num_blocks": 1, "num_layers": 1,
+                          "hidden_dim": 64},
+               "program_conf": {"conformer_num_blocks": 1,
+                                "blstm_num_layers": 1,
+                                "blstm_hdim": 64}},
+    "traffic": {"train": {"batch_size": 4, "min_window_size": 1.0,
+                          "max_window_size": 1.5,
+                          "synthetic_speakers": 4, "synthetic_utts": 2},
+                "max_warm_pulls": 100}}
 
 
 class Feed:
@@ -136,7 +150,7 @@ def build(cell, seed: int, device, tracer):
 
     loader = PrefetchLoader(factory=stream, num_threads=t["num_workers"],
                             device=None, group=t["steps_per_dispatch"])
-    model = program_model(cell.config, seed, device)
+    model = program_model(cell.config, seed, device, cell.root)
     trainer = Trainer(model, OBJECTIVES[t["objective"]].build_objective(conf),
                       LRSchedule.from_conf(conf), optim=t["optim"],
                       weight_decay=t["weight_decay"],
@@ -247,7 +261,7 @@ def run(cell, seed: int, seconds: float, device, tracer, t0: float,
     if tracer.enabled:  # a traced window may be shorter (the trace's size)
         seconds = min(seconds, float(traffic.get("trace_seconds", seconds)))
     disp.reset()
-    launches = Launches()
+    launches = Launches(cell.root)
     with tracer.window():
         start = time.perf_counter()
         until(trainer, feed, lambda: time.perf_counter() - start >= seconds,
@@ -260,13 +274,14 @@ def run(cell, seed: int, seconds: float, device, tracer, t0: float,
     steps = sum(disp.steps.values())
     rec = None
     if tracer.enabled:
-        rec = _record(cell, tracer, disp.steps, counts)
+        rec = _record(cell, tracer, disp.steps, counts, launches.missing)
     loader.close()
     del trainer, feed, disp
     free(device)
 
     numbers = compare(program, reference_run(cfg, traffic, seed,
-                                             program["batches"], device))
+                                             program["batches"], device,
+                                             root=cell.root))
     limits = cfg["limits"]["training"]
     checks = {k: {"value": numbers[k], "limit": v} for k, v in
               limits.items()}
@@ -291,16 +306,17 @@ def leaf_gaps(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
 
 
 def reference_run(cfg: Dict, traffic: Dict, seed: int, batches: List[Dict],
-                  device, mode: str = "f32") -> Dict:
+                  device, mode: str = "f32", root: Path = manifest.ROOT
+                  ) -> Dict:
     """The reference's steps on ``batches`` from the seed's weights, in
     precision ``mode``: what ``checked_steps`` gives, and ``moving``, the
     leaves whose first gradient is at least NOISE_FLOOR of the median
     leaf's."""
     strict_float32()
     t = traffic["train"]
-    ref = reference(cfg)
+    ref = reference(cfg, root)
     widths = cfg["widths"]
-    params = weights_for(cfg, seed, device)
+    params = weights_for(cfg, seed, device, root)
     hyper = {"lr": t["lr"], "warmup": t["warmup"], "decay": t["decay"],
              "weight_decay": t["weight_decay"], "grad_thresh":
              t["grad_thresh"], "noise_weight": t["mse_noise_weight"],
@@ -363,13 +379,15 @@ def compare(prog: Dict, ref: Dict) -> Dict:
     return out
 
 
-def _record(cell, tracer, steps: Dict[tuple, int], counts) -> readers.Record:
+def _record(cell, tracer, steps: Dict[tuple, int], counts,
+            missing: Dict[str, str]) -> readers.Record:
     cfg = cell.config
     fl = int(cfg["pipeline"]["separation"]["frame_length"])
     fh = int(cfg["pipeline"]["separation"]["frame_shift"])
     cost = manifest.cost(cell.config_name, cell.root)
     k = cfg["widths"]["num_spk"]
-    rec = readers.Record(tracer=tracer, config=cfg, root=cell.root)
+    rec = readers.Record(tracer=tracer, config=cfg, root=cell.root,
+                         missing=dict(missing))
     rec.counts = {"steps": sum(steps.values()),
                   "model_flops": sum(
                       3 * n_steps * cost.forward_flops(

@@ -5,14 +5,19 @@ model, its widths and dtype, the pipeline settings, the limits of the
 output check), ``traffic/<traffic>.json`` (the mix's parameters and the
 name of the driver module under ``drivers/`` that runs it) and, in a
 traced run, one reader ``metrics/<metric>.py`` for each per-layer metric
-the cell reports. Adding a cell, a configuration, a mix or a metric adds
+the cell reports. Every module a cell brings (its driver, its reference
+under ``reference/``, its readers, its kernels' and model's counts under
+``costs/``) is loaded by path from the cell's own root, so adding a cell,
+a configuration, a mix, a driver, a reference, a kernel or a metric adds
 files and entries; no code here names any of them.
 """
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, List
@@ -68,24 +73,51 @@ def load_cell(name: str, bench: Dict = None, root: Path = ROOT) -> Cell:
                            if _reports(m, name)])
 
 
-def _load_file(path: Path, module_name: str):
-    spec = importlib.util.spec_from_file_location(module_name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+_LOADED: Dict[Path, object] = {}
+
+
+def load(kind: str, name: str, root: Path = ROOT):
+    """``<root>/bench_gpu/<kind>/<name>.py``, executed once a process
+    under a module name made from its resolved path, so that two
+    checkouts' files of one name never stand for each other."""
+    path = (Path(root) / BENCH_DIR.name / kind / f"{name}.py").resolve()
+    if path not in _LOADED:
+        tag = hashlib.sha1(str(path).encode()).hexdigest()[:12]
+        module_name = f"bench_{kind}_{tag}"
+        spec = importlib.util.spec_from_file_location(module_name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[module_name] = mod  # as an import has it while it runs
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[module_name]
+            raise
+        _LOADED[path] = mod
+    return _LOADED[path]
+
+
+def names(kind: str, root: Path = ROOT) -> List[str]:
+    """The modules of ``<root>/bench_gpu/<kind>/``, by name."""
+    return sorted(p.stem for p in (Path(root) / BENCH_DIR.name / kind)
+                  .glob("*.py") if p.stem != "__init__")
 
 
 def reader(metric: str, root: Path = ROOT) -> Callable:
     """``metrics/<metric>.py``'s ``read(record)``."""
-    path = Path(root) / BENCH_DIR.name / "metrics" / f"{metric}.py"
-    return _load_file(path, "bench_metric_" + metric.replace(".", "_")).read
+    return load("metrics", metric, root).read
 
 
 def cost(name: str, root: Path = ROOT):
     """``costs/<name>.py`` (a kernel's or a configuration's counts)."""
-    path = Path(root) / BENCH_DIR.name / "costs" / f"{name}.py"
-    return _load_file(path, "bench_cost_" + name.replace(".", "_"))
+    return load("costs", name, root)
+
+
+def driver_module(name: str, root: Path = ROOT):
+    """``drivers/<name>.py``: ``run(...)`` and ``TINY``, the overrides
+    that cut its cells to a CPU test's size."""
+    return load("drivers", name, root)
 
 
 def driver(cell: Cell):
-    return importlib.import_module(f"bench_gpu.drivers.{cell.traffic['driver']}")
+    """The driver the cell's traffic file names, from the cell's root."""
+    return driver_module(cell.traffic["driver"], cell.root)

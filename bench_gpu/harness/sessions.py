@@ -11,7 +11,12 @@ device, so a 10-minute session takes milliseconds.
 Parameters (a traffic file's ``session`` object): ``seconds``,
 ``sample_rate``, ``voices`` ([f0, [formant Hz, ...]] per talker),
 ``turn_seconds`` [lo, hi], ``overlap`` [lo, hi] (share of a turn),
-``noise`` (standard deviation), ``level`` (a turn's peak).
+``noise`` (standard deviation), ``level`` (a turn's peak). For an array
+recording, ``mics`` ([x, y] metres a channel, channel 0 first) and
+``azimuths`` (degrees a talker): each talker reaches each microphone as a
+plane wave from its azimuth in free field (a delay in the frequency
+domain), with independent noise a channel; without ``mics`` a session is
+one channel.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+SOUND_M_S = 343.0  # the speed of sound, m/s
 
 
 def _turn(rng, f0, formants, sr, p, device) -> torch.Tensor:
@@ -62,5 +69,27 @@ def session(p: Dict, seed: int, index: int, device) -> torch.Tensor:
         pos, turn = start + dur, turn + 1
     gen = torch.Generator(device=device).manual_seed(
         int(rng.integers(2 ** 62)))
-    noise = torch.randn(n, generator=gen, device=device) * p["noise"]
-    return srcs.sum(0) + noise
+    if not p.get("mics"):
+        noise = torch.randn(n, generator=gen, device=device) * p["noise"]
+        return srcs.sum(0) + noise
+    mix = _array(srcs, p["mics"], p["azimuths"], sr)
+    noise = torch.randn(mix.shape, generator=gen, device=device) * p["noise"]
+    return mix + noise
+
+
+def _array(srcs: torch.Tensor, mics, azimuths, sr: int) -> torch.Tensor:
+    """Talkers (V, T) -> the array's channels (C, T): talker v reaches
+    the microphone at r after -(r . u_v) / c seconds, u_v its unit
+    direction."""
+    dev, n = srcs.device, srcs.shape[-1]
+    pos = torch.tensor(mics, dtype=torch.float64, device=dev)
+    az = torch.deg2rad(torch.tensor(azimuths, dtype=torch.float64,
+                                    device=dev))
+    tau = -(pos @ torch.stack([torch.cos(az), torch.sin(az)])) / SOUND_M_S
+    spec = torch.fft.rfft(srcs, n=n)
+    freqs = torch.fft.rfftfreq(n, 1.0 / sr, dtype=torch.float64, device=dev)
+    return torch.stack([
+        torch.fft.irfft((spec * torch.polar(
+            torch.ones_like(freqs), -2 * math.pi * freqs * tau[c, :, None])
+            .to(spec.dtype)).sum(0), n=n)
+        for c in range(pos.shape[0])])

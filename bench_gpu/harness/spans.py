@@ -9,8 +9,10 @@ From a profile's raw events:
     of every runtime call by its correlation id (``cudaLaunchKernel``,
     ``cudaLaunchKernelExC``, ``cudaGraphLaunch``, ``cudaMemcpyAsync``,
     ...: every CPU event whose name begins ``cu``), the host start of
-    every other CPU event (the PyTorch ops) by its correlation id, and the
-    device operations with their correlation and linked ids;
+    every other CPU event (the PyTorch ops) by its correlation id, the
+    device operations with their correlation and linked ids and names, and
+    the benchmark's window; the device-side entries of the marks are not
+    device operations;
   * ``charge(...)``: each device operation's seconds, clipped to the
     window, put down to the chain of ``css.`` spans open on the host when
     it was launched. The launch is the runtime call that shares the
@@ -48,31 +50,40 @@ Mark = Tuple[int, int, str]  # host start, end (ns), full name
 
 
 def split(events: Iterable):
-    """Raw profiler events -> (marks, runtime {corr: start_ns}, ops
-    {corr: start_ns}, device [(start_ns, end_ns, corr, linked)])."""
+    """Raw profiler events, read once -> (marks, runtime {corr: start_ns},
+    ops {corr: start_ns}, device [(start_ns, end_ns, corr, linked,
+    name)], window (start_ns, end_ns) of the ``bench.window`` mark or
+    None)."""
     marks: List[Mark] = []
     runtime: Dict[int, int] = {}
     ops: Dict[int, int] = {}
     device = []
+    window = None
+    on_host: Dict[object, bool] = {}  # device type -> is the CPU
     for e in events:
         name = e.name()
-        if str(e.device_type()).endswith("CPU"):
-            if name == WINDOW:
-                continue
+        kind = e.device_type()
+        host = on_host.get(kind)
+        if host is None:
+            host = on_host[kind] = str(kind).endswith("CPU")
+        start = e.start_ns()
+        if host:
             if name.startswith((CSS, BENCH)):
-                marks.append((e.start_ns(), e.start_ns() + e.duration_ns(),
-                              name))
+                if name == WINDOW:
+                    window = (start, start + e.duration_ns())
+                else:
+                    marks.append((start, start + e.duration_ns(), name))
             elif name.startswith("cu"):
-                runtime[e.correlation_id()] = e.start_ns()
+                runtime[e.correlation_id()] = start
             else:
-                ops[e.correlation_id()] = e.start_ns()
+                ops[e.correlation_id()] = start
             continue
         dur = e.duration_ns()
         if dur <= 0 or name.startswith((CSS, BENCH)):
-            continue
-        device.append((e.start_ns(), e.start_ns() + dur, e.correlation_id(),
-                       e.linked_correlation_id()))
-    return marks, runtime, ops, device
+            continue  # the marks' own entries on the device's timeline
+        device.append((start, start + dur, e.correlation_id(),
+                       e.linked_correlation_id(), name))
+    return marks, runtime, ops, device, window
 
 
 def chains(marks: Sequence[Mark], points: Sequence[int]
@@ -82,10 +93,18 @@ def chains(marks: Sequence[Mark], points: Sequence[int]
     order = sorted(marks, key=lambda m: (m[0], -m[1]))
     out: List[Tuple[str, ...]] = [()] * len(points)
     stack: List[Mark] = []
-    j = 0
+    j, last = 0, None
     for i in sorted(range(len(points)), key=points.__getitem__):
         t = points[i]
+        if t == last:  # a graph replay's kernels share their launch
+            out[i] = out[prev]
+            continue
+        last, prev = t, i
         while j < len(order) and order[j][0] <= t:
+            # a mark that ended before this one began is left (marks of
+            # one thread nest), so the stack stays as deep as the nesting
+            while stack and stack[-1][1] < order[j][0]:
+                stack.pop()
             stack.append(order[j])
             j += 1
         while stack and stack[-1][1] < t:
@@ -100,16 +119,21 @@ def charge(device, runtime: Dict[int, int], ops: Dict[int, int],
     spans open at each operation's launch."""
     css = [m for m in marks if m[2].startswith(CSS)]
     inside, points = [], []
-    for s, e, corr, linked in device:
+    for s, e, corr, linked, _ in device:
         if e <= lo or s >= hi:
             continue
         t = runtime.get(corr, ops.get(linked) if linked else None)
         inside.append((max(s, lo), min(e, hi), t))
         points.append(t if t is not None else 0)
     out: Dict[str, float] = defaultdict(float)
+    keys: Dict[Tuple[str, ...], str] = {}
     for (s, e, t), chain in zip(inside, chains(css, points)):
-        key = (UNLAUNCHED if t is None else
-               "/".join(n[len(CSS):] for n in chain))
+        if t is None:
+            key = UNLAUNCHED
+        else:
+            key = keys.get(chain)
+            if key is None:
+                key = keys[chain] = "/".join(n[len(CSS):] for n in chain)
         out[key] += (e - s) * 1e-9
     return dict(out)
 

@@ -8,19 +8,25 @@ untraced run times the program alone. With it on:
     synchronise where ``sync``) and marks it in the profiler's timeline
     as ``bench.<name>``;
   * ``window()`` brackets the traced window: the profiler (CPU and CUDA
-    activities) runs over it, and at its close the device's operations
+    activities) runs over it with the program's own spans and counters
+    recording (``css_tpu_torch.utils.trace.recording()``; nothing where
+    the program has none), and at its close the device's operations
     (kernels, copies, sets) inside it are read from the profiler's raw
     records, without building its event tree.
 
-``record()`` then holds what the metric readers read: the window's length,
+Then the tracer holds what the metric readers read: the window's length,
 the union of device intervals (``busy_s``), the device time and count of
-every operation by name, the idle gaps between device intervals summed by
-the innermost span the host was in at the time, and the spans' durations.
+every operation by name (``ops``), the device time charged to the chain
+of the program's spans that launched it (``charged``,
+``harness/spans.py``), the idle gaps between device intervals put down to
+the innermost span of either kind the host was in (``gaps``), the
+benchmark's spans' durations (``spans``) and what the program recorded
+(``program``: ``trace.collect()``, its spans' totals and its counters).
+The device-side marks of either kind of span are not device work.
 """
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 import time
 from collections import defaultdict
@@ -28,14 +34,15 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-PREFIX = "bench."
+from bench_gpu.harness.spans import BENCH, charge, gap_labels, split
+
 NAME_CHARS = 160  # a device operation's name as the breakdown gives it
 
 
 def _record_function(name: str):
     from torch.profiler import record_function
 
-    return record_function(PREFIX + name)
+    return record_function(BENCH + name)
 
 
 class Tracer:
@@ -47,6 +54,8 @@ class Tracer:
         self.busy_s: Optional[float] = None
         self.ops: Dict[str, List[float]] = {}  # name -> [seconds, count]
         self.gaps: Dict[str, float] = {}
+        self.charged: Dict[str, float] = {}
+        self.program: Optional[Dict] = None
         self.note: Optional[str] = None
         self._prof = None
 
@@ -82,59 +91,54 @@ class Tracer:
             return
         from torch.profiler import ProfilerActivity, profile
 
+        try:
+            from css_tpu_torch.utils import trace as program
+        except ImportError:  # a program that marks no span of its own
+            program = None
+        recording = (program.recording() if program is not None
+                     else contextlib.nullcontext())
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         self._sync()
+        if program is not None:
+            program.collect()  # drop whatever was recorded before
         self._prof = profile(activities=acts)
         self._prof.start()
         t = time.perf_counter()
         try:
-            with _record_function("window"):
+            with _record_function("window"), recording:
                 yield
             self._sync()
         finally:
             self.window_s = time.perf_counter() - t
             self._prof.stop()
+        if program is not None:
+            self.program = program.collect()
         self._collect()
         self._prof = None
 
     def _collect(self) -> None:
-        events = self._prof.profiler.kineto_results.events()
-        window = None
-        marks: List[Tuple[int, int, str]] = []
-        device: List[Tuple[int, int, str]] = []
-        for e in events:
-            name = e.name()
-            if str(e.device_type()).endswith("CPU"):
-                if name == PREFIX + "window":
-                    window = (e.start_ns(), e.start_ns() + e.duration_ns())
-                elif name.startswith(PREFIX):
-                    marks.append((e.start_ns(), e.start_ns()
-                                  + e.duration_ns(), name[len(PREFIX):]))
-                continue
-            dur = e.duration_ns()
-            if dur <= 0 or name.startswith(PREFIX):
-                continue  # the spans' own marks on the device's timeline
-            device.append((e.start_ns(), e.start_ns() + dur, name))
+        marks, runtime, launched, device, window = split(
+            self._prof.profiler.kineto_results.events())
         if window is None:
             self.note = "the profiler recorded no window marker"
             return
         lo, hi = window
         ops: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
         inside = []
-        for s, e, name in device:
+        for s, e, _, _, name in device:
             if e > lo and s < hi:
                 inside.append((max(s, lo), min(e, hi)))
                 rec = ops[name[:NAME_CHARS]]
                 rec[0] += (e - s) * 1e-9
                 rec[1] += 1
-        device = sorted(inside)
-        if not device:
+        inside.sort()
+        if not inside:
             self.note = "the profiler recorded no device time in the window"
             return
-        merged = [list(device[0])]
-        for s, e in device[1:]:
+        merged = [list(inside[0])]
+        for s, e in inside[1:]:
             if s <= merged[-1][1]:
                 merged[-1][1] = max(merged[-1][1], e)
             else:
@@ -144,21 +148,8 @@ class Tracer:
         gaps = [(lo, merged[0][0])] + [
             (a[1], b[0]) for a, b in zip(merged, merged[1:])] + [
             (merged[-1][1], hi)]
-        marks.sort()
-        starts = [m[0] for m in marks]
-        by_label: Dict[str, float] = defaultdict(float)
-        for s, e in gaps:
-            if e <= s:
-                continue
-            mid = (s + e) // 2
-            label = "harness"
-            i = bisect.bisect_right(starts, mid) - 1
-            for j in range(i, max(i - 64, -1), -1):
-                if marks[j][1] >= mid:  # the innermost span around mid
-                    label = marks[j][2]
-                    break
-            by_label[label] += (e - s) * 1e-9
-        self.gaps = dict(by_label)
+        self.charged = charge(device, runtime, launched, marks, lo, hi)
+        self.gaps = gap_labels(gaps, marks)
 
     def kernel(self, symbol: str) -> Tuple[float, int]:
         """(device seconds, count) of the operations whose name holds

@@ -16,7 +16,8 @@ number compared beside its limit, which also close standard error.
 
 Exit codes: 0 a result was printed; 2 no card, or fewer than the cell
 asks for; 3 the program is not in this checkout; 4 the JAX package or
-JAX was loaded by the time the window closed.
+JAX was loaded by the time the result was due (the window, the check
+and the per-layer readers all run by then).
 """
 
 import time
@@ -73,9 +74,6 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     out = drv.run(cell, seed=int(seed), seconds=float(seconds),
                   device=dev, tracer=tracer, t0=T0,
                   hooks=(overrides or {}).get("hooks", {}))
-    bad = result.forbidden_modules()
-    if bad:
-        return 4, None, [f"loaded after the window: {', '.join(bad)}"]
     units = {m["name"]: m["unit"] for m in
              cell.end_to_end + cell.per_layer}
     if trace:
@@ -91,6 +89,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         metrics = {k: {"value": v, "unit": units[k]}
                    for k, v in out.metrics.items()}
         err, breakdown = [], None
+    # last, once the readers and the cost files they load have run too
+    bad = result.forbidden_modules()
+    if bad:
+        return 4, None, [f"loaded after the window: {', '.join(bad)}"]
     line = result.line(out.correct, out.attempted, out.failed, metrics,
                        result.device_info(dev, cell.chips, out.memory_peak,
                                           tracer if trace else None),

@@ -1,6 +1,6 @@
 """The benchmark's CPU tests: the checkout's root on the import path, and
-the tiny sizes that run a cell end to end on the plain route (the CUDA
-kernels' plain versions) in seconds."""
+the tiny sizes, each driver's own, that run a cell end to end on the plain
+route (the CUDA kernels' plain versions) in seconds."""
 
 import sys
 from pathlib import Path
@@ -11,27 +11,12 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-# a cell's own configuration and mix, cut so that a CPU runs it in seconds
-TINY = {
-    "separation": {
-        "config": {"widths": {"num_blocks": 1, "num_layers": 1,
-                              "hidden_dim": 64},
-                   "program_conf": {"conformer_num_blocks": 1,
-                                    "blstm_num_layers": 1,
-                                    "blstm_hdim": 64}},
-        "traffic": {"session": {"seconds": 5}, "pool": 2,
-                    "warm_sessions": 1, "check_sessions": 2}},
-    "training": {
-        "config": {"widths": {"num_blocks": 1, "num_layers": 1,
-                              "hidden_dim": 64},
-                   "program_conf": {"conformer_num_blocks": 1,
-                                    "blstm_num_layers": 1,
-                                    "blstm_hdim": 64}},
-        "traffic": {"train": {"batch_size": 4, "min_window_size": 1.0,
-                              "max_window_size": 1.5,
-                              "synthetic_speakers": 4, "synthetic_utts": 2},
-                    "max_warm_pulls": 100}},
-}
+from bench_gpu.harness import manifest  # noqa: E402
+
+# driver kind -> the overrides that cut its cells so that a CPU runs them in
+# seconds: each driver's own ``TINY``
+TINY = {name: manifest.driver_module(name).TINY
+        for name in manifest.names("drivers")}
 
 
 # the training cells as a later benchmark PR would add them: built and
@@ -125,8 +110,6 @@ def training_root(base: Path) -> Path:
     """A checkout root under ``base`` whose BENCHMARK.json holds the
     training cells too, its bench_gpu the real one (a link)."""
     import json
-
-    from bench_gpu.harness import manifest
 
     bench = manifest.load_benchmark()
     for key, extra in TRAINING_ENTRIES.items():

@@ -5,7 +5,7 @@ the same."""
 import pytest
 
 from bench_gpu.costs import (blstm_css1024x3, conformer_css16x256, k1, k2,
-                             k3, peaks)
+                             k3, kc, peaks)
 
 
 def test_k3_small_shape():
@@ -27,12 +27,26 @@ def test_k2_small_shape():
     assert nbytes == 4 * (2 * 3 * 16 + 4 * 16 + 2 * 3 * 4)
 
 
+def test_kc_small_shape():
+    flops, nbytes = kc.work(batch=2, frames=3, channels=4, taps=5, elem=2)
+    assert flops == 2 * 2 * 3 * 4 * 5
+    assert nbytes == 2 * 2 * 2 * 3 * 4 + 4 * (4 * (2 + 5 + 1 + 4) + 6)
+
+
 def test_bounds_against_the_kernel_table():
     # bytes-bound at 3.35 TB/s, as the table: K3 0.0029 ms, K1 0.0202 ms
     assert k3.bound_seconds(rows=32, n=38656) * 1e3 == pytest.approx(
         0.0029, abs=1e-4)
     assert k1.bound_seconds(rows=146, frames=150) * 1e3 == pytest.approx(
         0.0202, abs=1e-4)
+    # KC bytes-bound at the separator's batch: 0.00147 / 0.00293 ms in
+    # bf16 / float32
+    for elem, ms in ((2, 0.00147), (4, 0.00293)):
+        shape = dict(batch=32, frames=150, channels=256, taps=33, elem=elem)
+        assert kc.bound_seconds(**shape) * 1e3 == pytest.approx(ms,
+                                                                 abs=2e-5)
+        flops, nbytes = kc.work(**shape)
+        assert kc.bound_seconds(**shape) == nbytes / peaks.HBM_BYTES
     # K2: the table held the products to 165 TFLOP/s (0.061 ms); here to
     # TF32's published 495, a third of that time
     flops, _ = k2.work(batch=32, steps=150, hidden=512)
@@ -57,3 +71,40 @@ def test_model_flops_by_hand():
     layer = 2 * (2 * bt * 4 * 8 + 2 * bt * 2 * 8)
     assert blstm_css1024x3.forward_flops(wb, b, t) == \
         2 * bt * 3 * 4 + layer + 2 * bt * 4 * 9
+
+
+@pytest.mark.parametrize("config", ["conformer_css16x256",
+                                    "blstm_css1024x3"])
+def test_launch_shapes_at_the_cells_geometry(config):
+    """Each kernel's ``shape`` at a 600 s session's separation geometry
+    (748 windows in 24 batches of 32, 150 frames a window): the shapes the
+    separation driver wrote out kernel by kernel before the cost files
+    gave them; K2 and KC none for a model without an LSTM or a conv
+    module."""
+    import json
+
+    from bench_gpu.harness import manifest
+
+    cfg = json.loads((manifest.BENCH_DIR / "configs" / f"{config}.json")
+                     .read_text())
+    elem = {"bfloat16": 2, "float32": 4}[cfg["dtype"]]
+    geo = {"batch": 32, "win": 38656, "hop": 12800, "frames": 150,
+           "windows": 748, "batches": 24, "samples": 9600000,
+           "channels": 1, "streams": 2, "elem": elem}
+    assert k3.shape(cfg, geo) == {"rows": 32, "n": 38656}
+    assert k1.shape(cfg, geo) == {"rows": 1496, "frames": 150}
+    lstm = {"batch": 32, "steps": 150, "hidden": 512, "elem": 4}
+    conv = {"batch": 32, "frames": 150, "channels": 256, "taps": 33,
+            "elem": 2}
+    blstm = config.startswith("blstm")
+    assert k2.shape(cfg, geo) == (lstm if blstm else None)
+    assert kc.shape(cfg, geo) == (None if blstm else conv)
+    for mod in (k1, k2, k3, kc):
+        shape = mod.shape(cfg, geo)
+        if shape is not None:
+            assert mod.bound_seconds(**shape) > 0
+    # Souden MVDR synthesises through K1's centered entry: a window's
+    # centered frames, (146, 152, 257) for a 60 s session
+    cfg["pipeline"]["beamforming"]["type"] = "souden_mvdr"
+    assert k1.shape(cfg, {**geo, "windows": 73}) == {"rows": 146,
+                                                     "frames": 152}

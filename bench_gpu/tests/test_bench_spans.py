@@ -1,10 +1,18 @@
 """Device time and idle gaps put down to the program's spans
-(``harness/spans.py``) on synthetic profiler events, and the reader of
-the program's build seconds."""
+(``harness/spans.py``) on synthetic profiler events, the tracer's reading
+of them (``harness/trace.py``), the readers of the program's spans and
+counters, and the program's tracing switched on only in a traced
+window."""
+
+import json
+from types import SimpleNamespace
 
 import pytest
+import torch
 
+from bench_gpu import run
 from bench_gpu.harness import manifest, readers, spans
+from bench_gpu.harness.trace import Tracer
 
 
 class Event:
@@ -70,17 +78,18 @@ EVENTS = [
 
 
 def test_split_sorts_marks_launches_and_device_operations():
-    marks, runtime, ops, device = spans.split(EVENTS)
+    marks, runtime, ops, device, window = spans.split(EVENTS)
     names = [m[2] for m in marks]
     assert "bench.window" not in names
     assert names.count("css.session") == 1 and "bench.separator" in names
     assert runtime == {1: 30, 2: 160, 4: 805, 5: 995}
     assert ops == {77: 250}
-    assert (170, 250, 2, 0) in device and len(device) == 9
+    assert (170, 250, 2, 0, "k3") in device and len(device) == 9
+    assert window == (0, 1000)
 
 
 def test_device_time_goes_to_the_innermost_launching_span():
-    marks, runtime, ops, device = spans.split(EVENTS)
+    marks, runtime, ops, device, _ = spans.split(EVENTS)
     got = spans.charge(device, runtime, ops, marks, 0, 1000)
     want = {"session/upload": 50e-9,
             "session/separator/program.separator_forward": 230e-9,
@@ -99,7 +108,7 @@ def test_device_time_goes_to_the_innermost_launching_span():
 
 
 def test_an_operation_is_clipped_to_the_window():
-    marks, runtime, ops, device = spans.split(EVENTS)
+    marks, runtime, ops, device, _ = spans.split(EVENTS)
     got = spans.charge(device, runtime, ops, marks, 200, 300)
     assert got == {"session/separator/program.separator_forward":
                    pytest.approx(100e-9)}
@@ -108,7 +117,7 @@ def test_an_operation_is_clipped_to_the_window():
 def test_gaps_go_to_the_innermost_span_of_either_prefix():
     """Each instant of a gap goes to the innermost span open then: a gap
     that crosses spans is split between them."""
-    marks, _, _, _ = spans.split(EVENTS)
+    marks = spans.split(EVENTS)[0]
     gaps = [(0, 40), (90, 170), (450, 810), (900, 950), (960, 996),
             (999, 1010), (5, 5)]
     got = spans.gap_labels(gaps, marks)
@@ -159,3 +168,111 @@ def test_program_build_seconds_reader(monkeypatch):
     monkeypatch.delattr(programs, "build_seconds")
     rec = _record()
     assert read(rec) is None and "keeps no build seconds" in rec.why[0]
+
+
+def _traced(events):
+    """A tracer whose profile held ``events``, read as a window closes."""
+    tracer = Tracer(True, torch.device("cpu"))
+    tracer._prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    tracer._collect()
+    return tracer
+
+
+def test_span_marks_on_the_device_are_not_busy():
+    """The device-side marks of the program's spans and the benchmark's
+    are not device work: busy time is the union of operations alone, each
+    charged to the program's span that launched it, and each idle instant
+    put down to the innermost span of either kind."""
+    marks = [Event("css.separator", 110, 580, "CUDA"),
+             Event("css.session", 10, 990, "CUDA"),
+             Event("bench.separator", 100, 600, "CUDA")]
+    tracer = _traced(EVENTS + marks)
+    # 40-90, 170-450, 810-900, 950-960, 996-999 inside [0, 1000]
+    assert tracer.busy_s == pytest.approx(433e-9)
+    assert not [n for n in tracer.ops if n.startswith(("css.", "bench."))]
+    m, runtime, ops, device, _ = spans.split(EVENTS)
+    assert tracer.charged == spans.charge(device, runtime, ops, m, 0, 1000)
+    assert tracer.gaps == spans.gap_labels(
+        [(0, 40), (90, 170), (450, 810), (900, 950), (960, 996),
+         (999, 1000)], m)
+    assert sum(tracer.gaps.values()) == pytest.approx(567e-9)
+    assert tracer.gaps["css.stitcher.scan"] == pytest.approx(70e-9)
+
+
+NEW_READERS = ["upload_ms.sep", "to_host_ms.sep", "separator_dev_ms.sep",
+               "stitcher_dev_ms.sep", "beamformer_dev_ms.sep",
+               "batch_fill.sep", "kc_roofline.sep"]
+
+
+def _bare(counts=None):
+    """A record of a traced run in which nothing was recorded."""
+    return readers.Record(tracer=Tracer(True, torch.device("cpu")),
+                          config={}, counts=counts or {"sessions": 3})
+
+
+@pytest.mark.parametrize("metric", NEW_READERS)
+def test_new_readers_read_none_where_nothing_was_recorded(metric):
+    rec = _bare()
+    assert manifest.reader(metric)(rec) is None
+    assert rec.why
+
+
+@pytest.mark.parametrize("helper,args", [
+    (readers.device_ms, ("upload", "sessions")),
+    (readers.program_ms, ("session", "sessions")),
+    (readers.counter, ("windows",))])
+def test_helpers_read_none_with_a_why(helper, args):
+    rec = _bare()
+    assert helper(rec, *args) is None
+    assert len(rec.why) == 1 and args[0] in rec.why[0]
+
+
+def test_readers_of_program_spans_and_counters():
+    tracer = _traced(EVENTS)
+    tracer.program = {"spans": {"session": {"count": 2, "total_ns": 9e6,
+                                            "self_ns": 1e6}},
+                      "counters": {"windows": 748, "batch_slots": 768}}
+    rec = readers.Record(tracer=tracer, config={}, counts={"sessions": 2})
+    read = {m: manifest.reader(m)(rec) for m in NEW_READERS}
+    assert read["separator_dev_ms.sep"] == pytest.approx(280e-9 * 1e3 / 2)
+    assert read["upload_ms.sep"] == pytest.approx(50e-9 * 1e3 / 2)
+    assert read["to_host_ms.sep"] == pytest.approx(90e-9 * 1e3 / 2)
+    assert read["batch_fill.sep"] == pytest.approx(100 * 748 / 768)
+    # no device time charged to the stitcher or beamformer, no KC launch
+    assert read["stitcher_dev_ms.sep"] is None
+    assert read["beamformer_dev_ms.sep"] is None
+    assert read["kc_roofline.sep"] is None
+    assert readers.program_ms(rec, "session", "sessions") == 4.5
+    assert readers.counter(rec, "windows") == 748
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_program_tracing_is_on_in_a_traced_window_alone(trace, tiny):
+    """Seen from inside each call of the pipeline: the program's tracing
+    stays off in an untraced run, and in a traced one is on in the window
+    alone (the warm calls of set-up run untraced)."""
+    from css_tpu_torch.utils import trace as program
+
+    seen = []
+
+    def hook(pipe):
+        process = pipe.process
+
+        def watched(wav):
+            seen.append(program.enabled())
+            return process(wav)
+        pipe.process = watched
+    over = tiny["separation"]
+    over["hooks"] = {"pipeline": hook}
+    rc, line, err = run.run_cell("conformer_css16x256.sep_libricss10min",
+                                 9, 1.0, bool(trace), device="cpu",
+                                 overrides=over)
+    assert rc == 0, err
+    out = json.loads(line)
+    warm = over["traffic"]["warm_sessions"]
+    assert len(seen) == warm + out["attempted"]
+    assert seen == [False] * warm + [bool(trace)] * out["attempted"]
+    assert not program.enabled()
+    if trace:
+        assert out["metrics"]["batch_fill.sep"]["value"] > 0
