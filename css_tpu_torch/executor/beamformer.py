@@ -89,24 +89,41 @@ class Beamformer:
               noise_mask: torch.Tensor) -> torch.Tensor:
         """wav_windows (B, D, N); speaker_masks (B, K, T, F); noise_mask
         (B, T, F) -> beamformed spectra (B, K, T', F) on the centered
-        frames, rescaled."""
-        spec = stft_ops.stft(wav_windows, self.n_fft, self.hop_length,
-                             center=True)  # (B, D, T', F)
-        t = spec.shape[2]
-        speech = self._align_mask(speaker_masks, t)  # (B, K, T', F)
-        noise = self._align_mask(noise_mask[:, None], t)  # (B, 1, T', F)
-        spec_k = spec[:, None]  # (B, 1, D, T', F)
-        tgt = compute_scm(spec_k, speech, DIAG_LOADING)
-        noi = compute_scm(spec_k, noise, DIAG_LOADING)
-        # one noise SCM, shared by every stream
-        w = souden_coefficients(noi.expand_as(tgt), tgt)  # (B, K, F, D)
-        out = apply_beamformer(spec_k, w)  # (B, K, T', F)
-        # the output's energy set to the masked channel 0's
-        masked = speech * spec[:, None, 0]
-        masked_e = torch.sqrt(masked.abs().square().mean(dim=(2, 3),
-                                                         keepdim=True))
-        out_e = torch.sqrt(out.abs().square().mean(dim=(2, 3), keepdim=True))
-        return out / torch.clamp(out_e, min=1e-12) * masked_e
+        frames, rescaled. A ``beamformer.mvdr`` span holding
+        ``beamformer.stft``, ``beamformer.scm`` (both SCMs),
+        ``beamformer.solve`` and ``beamformer.apply`` (the apply and the
+        energy rescale); counter ``mvdr_systems``, the B * K * F solves."""
+        with trace.span("beamformer.mvdr"):
+            with trace.span("beamformer.stft"):
+                spec = stft_ops.stft(wav_windows, self.n_fft,
+                                     self.hop_length,
+                                     center=True)  # (B, D, T', F)
+            t = spec.shape[2]
+            # the SCMs, the solves and the apply in float64: with little
+            # diffuse noise the noise SCMs' condition numbers reach 1e6-1e8,
+            # and float32 leaves the streams undecided by ~1e-2 there
+            speech = self._align_mask(speaker_masks,
+                                      t).double()  # (B, K, T', F)
+            noise = self._align_mask(noise_mask[:, None], t)  # (B, 1, T', F)
+            spec_k = spec.to(torch.complex128)[:, None]  # (B, 1, D, T', F)
+            with trace.span("beamformer.scm"):
+                tgt = compute_scm(spec_k, speech, DIAG_LOADING)
+                noi = compute_scm(spec_k, noise, DIAG_LOADING)
+            with trace.span("beamformer.solve"):
+                # one noise SCM, shared by every stream
+                w = souden_coefficients(noi.expand_as(tgt),
+                                        tgt)  # (B, K, F, D)
+            trace.count("mvdr_systems", w.shape[0] * w.shape[1] * w.shape[2])
+            with trace.span("beamformer.apply"):
+                out = apply_beamformer(spec_k, w)  # (B, K, T', F)
+                # the output's energy set to the masked channel 0's
+                masked = speech * spec_k[:, :, 0]
+                masked_e = torch.sqrt(masked.abs().square().mean(
+                    dim=(2, 3), keepdim=True))
+                out_e = torch.sqrt(out.abs().square().mean(dim=(2, 3),
+                                                           keepdim=True))
+                out = out / torch.clamp(out_e, min=1e-12) * masked_e
+                return out.to(spec.dtype)
 
     def _process(self, wav_windows: torch.Tensor, speaker_masks: torch.Tensor,
                  noise_mask: torch.Tensor) -> torch.Tensor:

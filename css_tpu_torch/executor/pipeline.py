@@ -14,7 +14,9 @@ resynthesises there as the default path does.
 ``process`` is a ``session`` span (``utils/trace.py``) holding
 ``upload``, ``separator``, ``stitcher``, ``beamformer``, ``to_host``
 and ``reanchor``, with the counters ``sessions``, ``audio_samples``,
-``bytes_up`` and ``bytes_down``.
+``bytes_up``, ``bytes_down`` and, with the DOA merge, ``merge_kills``
+(the separator's device count, read after ``to_host`` and only while
+tracing).
 """
 
 from __future__ import annotations
@@ -137,6 +139,11 @@ class CssPipeline:
                 outs = [o[:total].cpu().numpy() for o in outs]
                 if trace.enabled():
                     trace.count("bytes_down", sum(o.nbytes for o in outs))
+            if (trace.enabled() and self.sharded is None
+                    and self.separator.merge_kills is not None):
+                # the copies above have synchronised the stream: reading
+                # the device count waits for nothing
+                trace.count("merge_kills", int(self.separator.merge_kills))
             if self.reanchor:
                 with trace.span("reanchor"):
                     outs, _ = reanchor_streams(outs, sr=self.sr)

@@ -124,7 +124,9 @@ class Separator:
         """wav (T,) or (C, T) full recording -> (masks (B, T', F, S),
         mags (B, T', F)) on ``device``, one row per sliding window. A
         ``separator`` span: its own time is the batches' padding and the
-        final ``cat``; counters ``windows`` and ``batch_slots``."""
+        final ``cat``; counters ``windows``, ``batch_slots`` and, with
+        ``merge``, ``merge_windows`` (the recording's windows, the
+        batches' padding left out)."""
         with trace.span("separator"):
             wav = torch.as_tensor(wav, dtype=torch.float32,
                                   device=self.device)
@@ -136,6 +138,8 @@ class Separator:
             bs = self.batch_size
             trace.count("windows", n)
             trace.count("batch_slots", -(-n // bs) * bs)
+            if self.merge:
+                trace.count("merge_windows", n)
             outs_m, outs_g, kills = [], [], []
             for i in range(0, n, bs):
                 chunk = windows[i : i + bs]

@@ -27,9 +27,13 @@ The spans of the separation path (``css.`` prefix in a profile):
 ``program.<name>`` calls (``utils/programs.py``; attribute ``kind``:
 ``eager``, ``capture``, ``replay`` or ``direct``), ``stitcher`` with
 ``stitcher.scan`` (``executor/stitcher.py``), ``beamformer``
-(``executor/beamformer.py``), ``to_host`` and ``reanchor``. Counters:
-``sessions``, ``audio_samples``, ``bytes_up``, ``windows``,
-``batch_slots``, ``bytes_down``.
+(``executor/beamformer.py``; under Souden MVDR it holds
+``beamformer.mvdr``, and that ``beamformer.stft``, ``beamformer.scm``,
+``beamformer.solve`` and ``beamformer.apply``), ``to_host`` and
+``reanchor``. Counters: ``sessions``, ``audio_samples``, ``bytes_up``,
+``windows``, ``batch_slots``, ``bytes_down``; with the DOA merge
+``merge_windows`` and ``merge_kills``; under Souden MVDR
+``mvdr_systems``.
 """
 
 from __future__ import annotations

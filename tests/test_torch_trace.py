@@ -32,6 +32,20 @@ TREE = {"upload": "session", "separator": "session",
         "program.separator_forward": "separator", "stitcher": "session",
         "stitcher.scan": "stitcher", "beamformer": "session",
         "to_host": "session", "reanchor": "session"}
+# configs/infer_7ch.yaml's settings (IPD, the DOA merge, Souden MVDR)
+CONFIG_7CH = {
+    "sampling_rate": SR,
+    "separation": dict(CONFIG["separation"], ipd="1,0;2,0;3,0;4,0;5,0;6,0",
+                       merge=True, merge_threshold=16),
+    "stitching": CONFIG["stitching"],
+    "beamforming": dict(CONFIG["beamforming"], type="SoudenMVDRBeamformer"),
+}
+# Souden MVDR's spans, by parent
+MVDR_TREE = {"beamformer.mvdr": "beamformer",
+             "beamformer.stft": "beamformer.mvdr",
+             "beamformer.scm": "beamformer.mvdr",
+             "beamformer.solve": "beamformer.mvdr",
+             "beamformer.apply": "beamformer.mvdr"}
 
 
 def _pipe(reanchor=False):
@@ -45,6 +59,21 @@ def _pipe(reanchor=False):
 def _recording(seconds=7.3, seed=1):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal(int(seconds * SR)) * 0.1).astype(np.float32)
+
+
+def _pipe_7ch():
+    torch.manual_seed(0)
+    model = build_model("Conformer", {
+        "idim": 7 * 257, "conformer_attention_dim": 32,
+        "conformer_attention_heads": 4, "conformer_linear_units": 64,
+        "conformer_num_blocks": 1, "conformer_kernel_size": 7})
+    return CssPipeline(model, CONFIG_7CH, device="cpu")
+
+
+def _recording_7ch(seconds=7.3, seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((7, int(seconds * SR))) * 0.1).astype(
+        np.float32)
 
 
 @pytest.fixture(autouse=True)
@@ -254,3 +283,86 @@ def test_separate_cli_trace_adds_spans_and_counters(tmp_path, caplog):
         for s in range(2):
             a = (tmp_path / "a" / f"rec{i}_{s}.wav").read_bytes()
             assert a == (tmp_path / "b" / f"rec{i}_{s}.wav").read_bytes()
+
+
+@pytest.mark.parametrize("seven", [False, True], ids=["masking", "7ch"])
+def test_the_mvdr_spans_come_with_souden_mvdr_alone(seven):
+    pipe = _pipe_7ch() if seven else _pipe()
+    wav = _recording_7ch() if seven else _recording()
+    with trace.recording():
+        pipe.process(wav)
+    rec = trace.collect()
+    raw = rec["raw"]
+    by_id = {r["id"]: r for r in raw}
+    names = [r["name"] for r in raw]
+    if not seven:
+        assert not [n for n in names if n.startswith("beamformer.")]
+        return
+    assert {n: names.count(n) for n in MVDR_TREE} == dict.fromkeys(
+        MVDR_TREE, 1)
+    for r in raw:
+        if r["name"] in MVDR_TREE:
+            p = by_id[r["parent"]]
+            assert p["name"] == MVDR_TREE[r["name"]]
+            assert p["start_ns"] <= r["start_ns"] <= r["end_ns"] \
+                <= p["end_ns"]
+    assert set(TREE) - {"reanchor"} <= set(names)
+
+
+@pytest.mark.parametrize("seconds", [1.5, 7.3])
+def test_7ch_counters_match_the_shapes(seconds):
+    pipe = _pipe_7ch()
+    wav = _recording_7ch(seconds)
+    with trace.recording():
+        pipe.process(wav)
+    c = trace.collect()["counters"]
+    n = wav.shape[-1]
+    win, hop = pipe.separator.win, pipe.separator.hop
+    windows = max(1, -(-(n - win) // hop) + 1)
+    bins = pipe.separator.features.num_bins
+    assert c["bytes_up"] == 4 * 7 * n and c["windows"] == windows
+    assert c["merge_windows"] == windows
+    assert c["mvdr_systems"] == windows * pipe.num_spk * bins
+    assert c["merge_kills"] == int(pipe.separator.merge_kills)
+    assert 0 <= c["merge_kills"] <= windows
+
+
+def test_merge_kills_is_read_only_while_tracing():
+    """The separator's device count of killed windows is read (a wait on
+    the card) only under tracing, after the streams reached the host."""
+    pipe = _pipe_7ch()
+    separate, reads = pipe.separator.separate, []
+
+    class Probe:
+        def __init__(self, kills):
+            self.kills = kills
+
+        def __int__(self):
+            reads.append(trace.enabled())
+            return int(self.kills)
+
+    def probed(wav):
+        out = separate(wav)
+        pipe.separator.merge_kills = Probe(pipe.separator.merge_kills)
+        return out
+    pipe.separator.separate = probed
+    wav = _recording_7ch(3.0)
+    pipe.process(wav)
+    assert reads == []
+    with trace.recording():
+        pipe.process(wav)
+    assert reads == [True]
+    assert trace.collect()["counters"]["merge_kills"] == int(
+        pipe.separator.merge_kills.kills)
+
+
+def test_7ch_streams_are_bit_equal_with_tracing_on_and_off():
+    pipe = _pipe_7ch()
+    wav = _recording_7ch()
+    off = pipe.process(wav)
+    with trace.recording():
+        on = pipe.process(wav)
+    assert trace.collect()["spans"]["beamformer.mvdr"]["count"] == 1
+    assert len(on) == len(off) == 2
+    for a, b in zip(on, off):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
