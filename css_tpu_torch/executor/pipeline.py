@@ -14,9 +14,11 @@ resynthesises there as the default path does.
 ``process`` is a ``session`` span (``utils/trace.py``) holding
 ``upload``, ``separator``, ``stitcher``, ``beamformer``, ``to_host``
 and ``reanchor``, with the counters ``sessions``, ``audio_samples``,
-``bytes_up``, ``bytes_down`` and, with the DOA merge, ``merge_kills``
-(the separator's device count, read after ``to_host`` and only while
-tracing).
+``bytes_up``, ``bytes_down``, on a CUDA device one of ``to_host_reused``,
+``to_host_pinned`` and ``to_host_pageable`` (``executor/host_blocks.py``:
+the streams come back through page-locked blocks reused across sessions)
+and, with the DOA merge, ``merge_kills`` (the separator's device count,
+read after ``to_host`` and only while tracing).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from css_tpu_torch.data.wav_io import write_wav
 from css_tpu_torch.device import resolve_device
 from css_tpu_torch.executor.beamformer import Beamformer
+from css_tpu_torch.executor.host_blocks import HostBlocks
 from css_tpu_torch.executor.reanchor import reanchor_streams
 from css_tpu_torch.executor.separator import Separator
 from css_tpu_torch.executor.sharded import ShardedSeparation
@@ -101,6 +104,9 @@ class CssPipeline:
             proceed_margin=float(bf.get("proceed_margin", 2.0)),
             device=self.device,
         )
+        # on the CPU the streams are host memory already
+        self.host_blocks = (HostBlocks() if self.device.type == "cuda"
+                            else None)
         # only these read channels other than channel 0
         self.reads_all_channels = bool(
             sep.get("ipd") or self.separator.merge
@@ -136,7 +142,10 @@ class CssPipeline:
                 stitched = self.stitcher(masks, mags)
             outs = self.beamformer.continuous_process(wav, stitched)
             with trace.span("to_host"):
-                outs = [o[:total].cpu().numpy() for o in outs]
+                if self.host_blocks is not None:
+                    outs = self.host_blocks.to_host(outs, total)
+                else:
+                    outs = [o[:total].cpu().numpy() for o in outs]
                 if trace.enabled():
                     trace.count("bytes_down", sum(o.nbytes for o in outs))
             if (trace.enabled() and self.sharded is None

@@ -31,7 +31,9 @@ The spans of the separation path (``css.`` prefix in a profile):
 ``beamformer.mvdr``, and that ``beamformer.stft``, ``beamformer.scm``,
 ``beamformer.solve`` and ``beamformer.apply``), ``to_host`` and
 ``reanchor``. Counters: ``sessions``, ``audio_samples``, ``bytes_up``,
-``windows``, ``batch_slots``, ``bytes_down``; with the DOA merge
+``windows``, ``batch_slots``, ``bytes_down``; on a CUDA device, under
+``to_host`` (``executor/host_blocks.py``), ``to_host_reused``,
+``to_host_pinned`` and ``to_host_pageable``; with the DOA merge
 ``merge_windows`` and ``merge_kills``; under Souden MVDR
 ``mvdr_systems``.
 """

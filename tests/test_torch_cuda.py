@@ -808,3 +808,78 @@ def test_exported_conformer_keeps_the_conv_module_op(card, tmp_path):
         want = torch.clamp(model(f)[1], max=1.0)
     assert ccm.conv_module.launches == before + 4
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_host_blocks_pin_and_copy_on_the_card(card):
+    """The pipeline's host blocks (executor/host_blocks.py) on the card:
+    page-locked, each asynchronous copy equal to its device stream, a held
+    session's arrays intact after later sessions' copies, a short block
+    replaced, a freed one reused, and a freed pool's blocks unpinned (a
+    new pool pins again, at what may be the same addresses)."""
+    from css_tpu_torch.executor.host_blocks import HostBlocks
+    from css_tpu_torch.utils import trace
+
+    n = 16000 * 60
+
+    def streams(seed, length):
+        g = torch.Generator(device=card).manual_seed(seed)
+        return [torch.randn(length + 1000, device=card, generator=g)
+                for _ in range(2)]
+
+    def same(outs, ts, length):
+        return all(np.array_equal(o, t[:length].cpu().numpy())
+                   for o, t in zip(outs, ts))
+
+    for _ in range(2):
+        pool = HostBlocks()
+        trace.collect()
+        with trace.recording():
+            short = streams(0, n // 2)
+            outs = pool.to_host(short, n // 2)
+            assert torch.from_numpy(outs[0].base).is_pinned()
+            del outs
+            first = streams(1, n)
+            kept = pool.to_host(first, n)
+            for seed in range(2, 6):
+                s = streams(seed, n)
+                outs = pool.to_host(s, n)
+                assert torch.from_numpy(outs[0].base).is_pinned()
+                assert same(outs, s, n)
+                del outs
+            assert same(kept, first, n)
+        # the short block replaced, a second pinned beside the held one
+        assert trace.collect()["counters"] == {"to_host_pinned": 3,
+                                               "to_host_reused": 3}
+        del pool, kept
+
+
+def test_pipeline_streams_through_host_blocks_equal_the_pageable_copy(card):
+    """CssPipeline.process on the card returns through its host blocks the
+    same bits as the pageable ``.cpu()`` copy (the separator's replays on
+    both sides: warmed first)."""
+    from css_tpu_torch.executor.pipeline import CssPipeline
+    from css_tpu_torch.models.conformer import Conformer
+    from css_tpu_torch.utils import trace
+
+    conf = {"conformer_attention_dim": 64, "conformer_attention_heads": 4,
+            "conformer_linear_units": 128, "conformer_num_blocks": 2,
+            "conformer_kernel_size": 7, "conformer_dropout_rate": 0.0}
+    torch.manual_seed(0)
+    pipe = CssPipeline(Conformer.build_model(conf), {
+        "separation": {"batch_size": 4},
+        "beamforming": {"type": "masking"}}, device=card)
+    wav = (np.random.default_rng(1).standard_normal(16000 * 7) * 0.1
+           ).astype(np.float32)
+    for _ in range(3):
+        pipe.process(wav)
+    blocks, pipe.host_blocks = pipe.host_blocks, None
+    plain = pipe.process(wav)
+    pipe.host_blocks = blocks
+    trace.collect()
+    with trace.recording():
+        pooled = pipe.process(wav)
+    assert trace.collect()["counters"]["to_host_reused"] == 1
+    assert torch.from_numpy(pooled[0].base).is_pinned()
+    assert len(pooled) == len(plain) == 2
+    for a, b in zip(pooled, plain):
+        assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from css_tpu_torch.executor.host_blocks import HostBlocks
 from css_tpu_torch.executor.pipeline import CssPipeline
 from css_tpu_torch.models import build_model
 from css_tpu_torch.utils import trace
@@ -32,6 +33,11 @@ TREE = {"upload": "session", "separator": "session",
         "program.separator_forward": "separator", "stitcher": "session",
         "stitcher.scan": "stitcher", "beamformer": "session",
         "to_host": "session", "reanchor": "session"}
+# every counter of the separation path
+COUNTERS = ["sessions", "audio_samples", "bytes_up", "windows",
+            "batch_slots", "bytes_down", "to_host_reused", "to_host_pinned",
+            "to_host_pageable", "merge_windows", "merge_kills",
+            "mvdr_systems"]
 # configs/infer_7ch.yaml's settings (IPD, the DOA merge, Souden MVDR)
 CONFIG_7CH = {
     "sampling_rate": SR,
@@ -183,6 +189,36 @@ def test_counters_match_the_shapes(seconds):
                  "batch_slots": -(-windows // BATCH) * BATCH,
                  "bytes_down": 4 * n * pipe.num_spk}
     assert sum(o.nbytes for o in outs) == c["bytes_down"]
+
+
+@pytest.mark.parametrize("name", COUNTERS)
+def test_the_docstring_names_every_counter(name):
+    assert f"``{name}``" in trace.__doc__
+
+
+@pytest.mark.parametrize("blocks", [False, True], ids=["cpu", "host_blocks"])
+def test_process_returns_the_same_float32_streams_through_host_blocks(
+        blocks):
+    """On the CPU the streams come back as they did, with no host block
+    and none of its counters; through the pool (which a CUDA device
+    takes) they are the same, and a dropped session's block is reused."""
+    pipe = _pipe()
+    assert pipe.host_blocks is None
+    wav = _recording()
+    plain = pipe.process(wav)
+    if blocks:
+        pipe.host_blocks = HostBlocks()
+    with trace.recording():
+        outs = pipe.process(wav)
+        del outs
+        outs = pipe.process(wav)
+    c = trace.collect()["counters"]
+    assert isinstance(outs, tuple) and len(outs) == len(plain) == 2
+    for a, b in zip(outs, plain):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+    got = {k: v for k, v in c.items() if k.startswith("to_host_")}
+    assert got == ({"to_host_pinned": 1, "to_host_reused": 1} if blocks
+                   else {})
 
 
 def test_streams_are_bit_equal_with_tracing_on_and_off():
