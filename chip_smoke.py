@@ -756,8 +756,13 @@ def check_close(name, got, want, atol, rtol):
 @contextlib.contextmanager
 def plain_kernels(stft_mag_cuda, istft_cuda, lstm_cuda):
     """Route the main paths through the kernels' plain versions (the
-    Conformer's conv module through its composite, x + m(x))."""
+    Conformer's conv module through its composite, x + m(x)), with every
+    step program run directly (``programs.eager()``): a program's cache
+    key does not hold which wrapper a module attribute names, so a graph
+    captured before the swap would replay the kernels, and one captured
+    inside it would replay the plain versions after it."""
     from css_tpu_torch.ops import conv_module_cuda as ccm
+    from css_tpu_torch.utils import programs
 
     saved = (stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused,
              ccm.conv_module)
@@ -766,7 +771,8 @@ def plain_kernels(stft_mag_cuda, istft_cuda, lstm_cuda):
     lstm_cuda.lstm_fused = lstm_cuda.lstm_plain
     ccm.conv_module = kc_plain
     try:
-        yield
+        with programs.eager():
+            yield
     finally:
         (stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused,
          ccm.conv_module) = saved

@@ -2,11 +2,11 @@
 
 Port of ``css_tpu/executor/separator.py``: the recording, (T,) or
 (C, T), is cut into sliding windows, the windows run through features +
-model in batches of ``batch_size`` (the last batch padded with zero
-windows and sliced back, so every forward has one shape), and the masks
-are clamped at 1. With ``merge`` (7ch) the DOA merge
-(``executor/doa.py``) kills the weaker of the two speaker masks in every
-window whose two DOAs coincide. Everything stays on ``device``.
+model in batches of ``batch_size`` (``forward_windows``: full batches as
+cut, the last, partial one padded with zero windows and sliced back, so
+every forward has one shape), and the masks are clamped at 1. With
+``merge`` (7ch) the DOA merge (``executor/doa.py``) kills the weaker of
+the two speaker masks in every window whose two DOAs coincide. Everything stays on ``device``.
 
 On the card ``forward`` is one captured CUDA graph a (batch, [channels,]
 window, compute dtype) (``utils/programs.py``), the counterpart of the
@@ -95,6 +95,9 @@ class Separator:
         return self.program(wav_batch, mode=(dtype,))
 
     def _forward_impl(self, wav_batch: torch.Tensor):
+        # K3 takes a contiguous signal: a batch cut from the windows view
+        # is copied once here, a program's static input not at all
+        wav_batch = wav_batch.contiguous()
         if self.merge:
             mag, feats, spec = self.features(wav_batch, return_spec=True)
         else:
@@ -123,8 +126,8 @@ class Separator:
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """wav (T,) or (C, T) full recording -> (masks (B, T', F, S),
         mags (B, T', F)) on ``device``, one row per sliding window. A
-        ``separator`` span: its own time is the batches' padding and the
-        final ``cat``; counters ``windows``, ``batch_slots`` and, with
+        ``separator`` span: its own time is the last batch's padding and
+        the final ``cat``; counters ``windows``, ``batch_slots`` and, with
         ``merge``, ``merge_windows`` (the recording's windows, the
         batches' padding left out)."""
         with trace.span("separator"):
@@ -140,16 +143,26 @@ class Separator:
             trace.count("batch_slots", -(-n // bs) * bs)
             if self.merge:
                 trace.count("merge_windows", n)
-            outs_m, outs_g, kills = [], [], []
-            for i in range(0, n, bs):
-                chunk = windows[i : i + bs]
-                real = chunk.shape[0]
-                batch = chunk.new_zeros((bs,) + tuple(chunk.shape[1:]))
-                batch[:real] = chunk
-                masks, mag, kill = self.forward(batch)
-                outs_m.append(masks[:real])
-                outs_g.append(mag[:real])
-                if kill is not None:
-                    kills.append(kill[:real].any(dim=-1).sum())
-            self.merge_kills = torch.stack(kills).sum() if kills else None
-            return torch.cat(outs_m), torch.cat(outs_g)
+            masks, mags, self.merge_kills = self.forward_windows(windows, bs)
+            return masks, mags
+
+    def forward_windows(self, windows: torch.Tensor, batch_size: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   Optional[torch.Tensor]]:
+        """(n, [C,] win) windows -> (masks, mags, the merge's killed
+        windows as a 0-d tensor or None), in forwards of ``batch_size``
+        windows: full batches as cut, a partial last one zero-padded."""
+        outs_m, outs_g, kills = [], [], []
+        for i in range(0, windows.shape[0], batch_size):
+            batch = windows[i : i + batch_size]
+            real = batch.shape[0]
+            if real < batch_size:
+                batch = torch.cat([batch, batch.new_zeros(
+                    (batch_size - real,) + tuple(batch.shape[1:]))])
+            masks, mag, kill = self.forward(batch)
+            outs_m.append(masks[:real])
+            outs_g.append(mag[:real])
+            if kill is not None:
+                kills.append(kill[:real].any(dim=-1).sum())
+        kills = torch.stack(kills).sum() if kills else None
+        return torch.cat(outs_m), torch.cat(outs_g), kills

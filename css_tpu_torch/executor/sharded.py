@@ -5,7 +5,9 @@ axis of one recording over a device mesh inside one jit program; here the
 windows are split over a list of devices (the default: every visible
 card; a device may repeat, which runs two shards on one card), each shard
 runs the features (K3) and the mask model on its own device, in batches of
-``batch_size`` windows, and the masks and magnitudes are gathered
+``batch_size`` windows (``Separator.forward_windows``; all the shard's
+windows in one forward without a ``batch_size``), and the masks and
+magnitudes are gathered
 to ``devices[0]`` and stitched there. The window count is padded to a
 multiple of the shard count with zero windows; their magnitudes and masks
 are zeroed before the boundary permutations and they add nothing to the
@@ -78,24 +80,6 @@ class ShardedSeparation:
     def n_shards(self) -> int:
         return len(self.devices)
 
-    def _shard_forward(self, sep: Separator, windows: torch.Tensor):
-        """A shard's windows -> (masks, mags) on its device, in batches of
-        ``batch_size`` (the last padded with zero windows and sliced back,
-        as the separator does, so every forward has one shape)."""
-        n = windows.shape[0]
-        bs = self.batch_size or n
-        masks, mags = [], []
-        for i in range(0, n, bs):
-            chunk = windows[i:i + bs]
-            real = chunk.shape[0]
-            if real < bs:
-                chunk = torch.cat([chunk, chunk.new_zeros(
-                    (bs - real,) + tuple(chunk.shape[1:]))])
-            m, g, _ = sep.forward(chunk)
-            masks.append(m[:real])
-            mags.append(g[:real])
-        return torch.cat(masks), torch.cat(mags)
-
     @torch.no_grad()
     def separate(self, wav) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor,
                                      torch.Tensor]:
@@ -111,12 +95,12 @@ class ShardedSeparation:
             windows = torch.cat([windows, windows.new_zeros(
                 (pad,) + tuple(windows.shape[1:]))])
         per = windows.shape[0] // self.n_shards
-        shards = [self._shard_forward(sep, windows[i * per:(i + 1) * per]
-                                      .to(d).contiguous())
+        shards = [sep.forward_windows(windows[i * per:(i + 1) * per].to(d),
+                                      self.batch_size or per)
                   for i, (sep, d) in enumerate(zip(self.separators,
                                                    self.devices))]
-        masks = torch.cat([m.to(home) for m, _ in shards])
-        mags = torch.cat([g.to(home) for _, g in shards])
+        masks = torch.cat([m.to(home) for m, _, _ in shards])
+        mags = torch.cat([g.to(home) for _, g, _ in shards])
         valid = torch.arange(b + pad, device=home) < b
         # padded windows must not steer the boundary permutations
         mags = torch.where(valid[:, None, None], mags, 0.0)

@@ -1,5 +1,6 @@
 """Build the CUDA kernels under ``csrc/`` into one shared library, and the
-launch helpers the kernel wrappers share.
+launch helpers the kernel wrappers share: the package's one operator
+library and the launch counters.
 
 The sources have a plain C interface (no PyTorch headers), so each one
 compiles with ``nvcc`` in seconds; all are compiled at once, in parallel,
@@ -12,6 +13,16 @@ hash of the sources and flags, so an edited source is rebuilt and a
 finished build is reused. Every file is written under a temporary name and
 moved into place with ``os.replace``, so concurrent builders never see a
 partial library.
+
+``LIB`` holds the kernels that ``torch.export`` keeps as one node (K2, KC),
+each defined with a CPU kernel (the plain version), a CUDA kernel (the
+launch) and a fake kernel. Not with ``torch.library``'s ``custom_op``,
+whose first call imports ``torch._dynamo``: seconds of set-up.
+
+``@counted`` registers a kernel wrapper in ``KERNELS`` with its counters
+``launches`` and ``plain_routes``. Launch code counts through ``KERNELS``,
+so a count lands on the registered wrapper whatever a module attribute
+holds; ``utils/programs.py`` adds a captured graph's counts at each replay.
 """
 
 from __future__ import annotations
@@ -24,6 +35,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Callable, Dict
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -46,6 +60,18 @@ SIGNATURES = {
     "css_lstm": [_P] * 8 + [_I] * 13 + [_P],
     "css_conv_module": [_P] * 14 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P],
 }
+
+
+LIB = torch.library.Library("css_tpu_torch", "FRAGMENT")
+KERNELS: Dict[str, Callable] = {}  # name -> the wrapper that counts
+
+
+def counted(fn: Callable) -> Callable:
+    """Register the kernel wrapper ``fn`` under its name, its counters
+    ``fn.launches`` and ``fn.plain_routes`` at 0 (a decorator)."""
+    fn.launches = fn.plain_routes = 0
+    KERNELS[fn.__name__] = fn
+    return fn
 
 
 def find_nvcc() -> str:

@@ -30,21 +30,20 @@ it is counted in
 ``conv_module.plain_routes``, and so is ``ConvModule.stream`` (the hop
 path's carried tail, which the kernel does not take). The decision reads
 only the input's device, dtype and shape and the module's mode and
-parameters. ``conv_module.launches`` counts kernel launches, a captured
-program's replays too (``utils/programs.py``).
+parameters. ``conv_module.launches`` counts kernel launches
+(``ops/_build.py``), a captured program's replays too
+(``utils/programs.py``).
 """
 
 from __future__ import annotations
 
 import operator
-import sys
 from typing import List
 
 import torch
 import torch.nn.functional as F
 
 from css_tpu_torch.ops import _build
-from css_tpu_torch.utils import programs
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_CHANNELS = 256  # one thread a channel in a block of 256
@@ -89,9 +88,10 @@ def takes_kernel(m, x: torch.Tensor) -> bool:
 def count_plain(x: torch.Tensor) -> None:
     """Count a plain route of the conv module off the CPU."""
     if x.device.type != "cpu":
-        _COUNTS.plain_routes += 1
+        _build.KERNELS["conv_module"].plain_routes += 1
 
 
+@_build.counted
 def conv_module(m, x: torch.Tensor) -> torch.Tensor:
     """``x + m(x)`` for a Conformer block's ConvModule ``m`` and its input
     x (B, T, C): the kernel where ``takes_kernel``, else the plain route."""
@@ -137,14 +137,11 @@ def _check(x: torch.Tensor, params: List[torch.Tensor], left: int,
 # The kernel as a registered operator, so that torch.export keeps it as one
 # node of the graph: the CPU kernel is the kernel's function in PyTorch
 # (float32 throughout, one rounding), the CUDA kernel the launch, the fake
-# kernel the shape for tracing. No autograd formula: a forward that records
-# gradients takes the plain route. Registered through torch.library's
-# Library API: torch.library.custom_op wraps its kernels in
-# torch._disable_dynamo, whose first call imports torch._dynamo, seconds of
-# set-up that nothing else on the separation path pays.
-_LIB = torch.library.Library("css_tpu_torch", "FRAGMENT")
-_LIB.define("conv_module(Tensor x, Tensor[] params, int left, int right, "
-            "float ln_eps, float bn_eps) -> Tensor")
+# kernel the shape for tracing (registered on the package's one operator
+# library, ``_build.LIB``). No autograd formula: a forward that records
+# gradients takes the plain route.
+_build.LIB.define("conv_module(Tensor x, Tensor[] params, int left, "
+                  "int right, float ln_eps, float bn_eps) -> Tensor")
 
 
 def _conv_module_cpu(x, params, left, right, ln_eps, bn_eps):
@@ -181,7 +178,7 @@ def _conv_module_cuda(x, params, left, right, ln_eps, bn_eps):
             raise ValueError(f"conv_module kernel refused x "
                              f"{tuple(x.shape)}, {k} taps, left {left}")
         _build.check(err, "conv_module")
-        _COUNTS.launches += 1
+        _build.KERNELS["conv_module"].launches += 1
     return out
 
 
@@ -189,17 +186,8 @@ def _conv_module_fake(x, params, left, right, ln_eps, bn_eps):
     return torch.empty_like(x)
 
 
-_LIB.impl("conv_module", _conv_module_cpu, "CPU")
-_LIB.impl("conv_module", _conv_module_cuda, "CUDA")
+_build.LIB.impl("conv_module", _conv_module_cpu, "CPU")
+_build.LIB.impl("conv_module", _conv_module_cuda, "CUDA")
 torch.library.register_fake("css_tpu_torch::conv_module", _conv_module_fake,
-                            lib=_LIB)
+                            lib=_build.LIB)
 conv_module_op = torch.ops.css_tpu_torch.conv_module.default
-
-
-conv_module.launches = 0
-conv_module.plain_routes = 0
-# the counters' owner, kept apart from the module attribute that a
-# measurement may swap for a plain function
-_COUNTS = conv_module
-# a captured program counts its launches at every replay
-programs.register_kernel(sys.modules[__name__], "conv_module")

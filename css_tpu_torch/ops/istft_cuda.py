@@ -23,14 +23,13 @@ from the shape alone before any launch and counted in
 not a power of two in [4, 2048]**, runs the plain version on the card, as
 the reference runs such shapes on XLA. More than ``MAX_ROWS`` rows are
 split across launches (rows are independent, so this is exact).
-``istft.launches`` counts kernel launches, those of a captured
-program's replays too (``utils/programs.py``).
+``istft.launches`` counts kernel launches (``ops/_build.py``), those of a
+captured program's replays too (``utils/programs.py``).
 """
 
 from __future__ import annotations
 
 import functools
-import sys
 
 import numpy as np
 import torch
@@ -38,7 +37,6 @@ import torch.nn.functional as F
 
 from css_tpu_torch.ops import _build, stft_mag_cuda
 from css_tpu_torch.ops import stft as stft_ops
-from css_tpu_torch.utils import programs
 
 MAX_ROWS = 65535  # rows sit in gridDim.y
 
@@ -75,6 +73,7 @@ def _tables(frame_len: int, hop: int, n_fft: int, device: torch.device):
             torch.as_tensor(recip.astype(np.float32), device=device))
 
 
+@_build.counted
 def istft(spec: torch.Tensor, frame_len: int = 512,
           hop: int = 256) -> torch.Tensor:
     """Complex64 (rows, T, bins) -> float32 (rows, (T+1)*hop)."""
@@ -95,7 +94,7 @@ def istft(spec: torch.Tensor, frame_len: int = 512,
         raise ValueError(f"istft kernel: unsupported shape {tuple(spec.shape)}"
                          f" with frame_len {frame_len}")
     if not takes_kernel(frame_len, hop, n_fft):
-        istft.plain_routes += 1
+        _build.KERNELS["istft"].plain_routes += 1
         return istft_plain(spec, frame_len, hop)
     log_m = n_fft.bit_length() - 2
     twid, window, env = _tables(frame_len, hop, n_fft, spec.device)
@@ -109,14 +108,8 @@ def istft(spec: torch.Tensor, frame_len: int = 512,
             env.data_ptr(), out[lo].data_ptr(), hi - lo, num_frames, hop,
             log_m, spec.device.index or 0, stream)
         _build.check(err, "istft")
-        istft.launches += 1
+        _build.KERNELS["istft"].launches += 1
     return out
-
-
-istft.launches = 0
-istft.plain_routes = 0
-# a captured program counts its launches at every replay
-programs.register_kernel(sys.modules[__name__], "istft")
 
 
 def istft_centered(spec: torch.Tensor, frame_len: int = 512, hop: int = 256,

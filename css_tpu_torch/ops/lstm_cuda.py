@@ -45,8 +45,9 @@ ValueError that names the shape (the kernel's barrier would wait for a
 cluster that never starts). A batch above ``MAX_BATCH`` rows is split
 across launches (batch entries are independent, so this is exact).
 ``lstm_fused.launches`` counts kernel launches, and the op's CUDA kernel
-counts them, so a served artifact's launches count as the live model's;
-a captured program's replays count too (``utils/programs.py``).
+counts them (``ops/_build.py``), so a served artifact's launches count
+as the live model's; a captured program's replays count too
+(``utils/programs.py``).
 
 Streaming (hop-granular, a causal LSTM over chunks of a few frames) hands
 the recurrence a carried state: ``state=(h0, c0)``, h0 (B, h) in xw's
@@ -61,13 +62,11 @@ dtype; in float32 the two are the same function.)
 
 from __future__ import annotations
 
-import sys
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from css_tpu_torch.ops import _build
-from css_tpu_torch.utils import programs
 
 DTYPES = (torch.float32, torch.bfloat16)
 SHAPE_REFUSED = -1  # css_lstm's return for a plan the kernel does not take
@@ -216,7 +215,7 @@ def _launch(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
     carried = state is not None
     plan = lstm_plan(hidden, xw.element_size())
     if plan is None:
-        _COUNTS.plain_routes += 1
+        _build.KERNELS["lstm_fused"].plain_routes += 1
         out, h, c = _scan(xw, w_hh, hidden, reverse, state)
         return out, h.clone(), c.clone()
     out = torch.empty((b, t, hidden), dtype=xw.dtype, device=xw.device)
@@ -264,21 +263,22 @@ def _launch(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
                              f"of {CLUSTER} cannot all be resident at once "
                              f"on this card")
         _build.check(err, "lstm_fused")
-        _COUNTS.launches += 1
+        _build.KERNELS["lstm_fused"].launches += 1
     return out, out[:, 0 if reverse else -1].clone(), c_out
 
 
 # K2 as a registered operator, so that torch.export keeps it as one node of
 # the graph (an exported BLSTM serves with its kernel): the CPU kernel is
 # the plain loop, the CUDA kernel the launch above, the fake kernel gives
-# the shapes for tracing. No autograd formula: training runs
+# the shapes for tracing (registered on the package's one operator
+# library, ``_build.LIB``). No autograd formula: training runs
 # models.blstm.lstm_scan(differentiable=True), a loop autograd records.
-@torch.library.custom_op("css_tpu_torch::lstm_fused", mutates_args=(),
-                         device_types="cpu")
-def lstm_op(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
-            reverse: bool, h0: Optional[torch.Tensor] = None,
-            c0: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+_build.LIB.define("lstm_fused(Tensor xw, Tensor w_hh, SymInt hidden, "
+                  "bool reverse, Tensor? h0=None, Tensor? c0=None) -> "
+                  "(Tensor, Tensor, Tensor)")
+
+
+def _lstm_op_cpu(xw, w_hh, hidden, reverse, h0=None, c0=None):
     """xw (B, T, 4h), w_hh (h, 4h), the initial (h0, c0) or None ->
     (hs (B, T, h) in xw's dtype, the last step's h (B, h), its c (B, h)
     float32)."""
@@ -287,13 +287,11 @@ def lstm_op(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
     return out, h.clone(), c.clone()
 
 
-@lstm_op.register_kernel("cuda")
 def _lstm_op_cuda(xw, w_hh, hidden, reverse, h0=None, c0=None):
     return _launch(xw, w_hh, hidden, reverse,
                    _initial_state(xw, hidden, reverse, _pair(h0, c0), False))
 
 
-@lstm_op.register_fake
 def _lstm_op_fake(xw, w_hh, hidden, reverse, h0=None, c0=None):
     b, t, _ = xw.shape
     return (xw.new_empty((b, t, hidden)), xw.new_empty((b, hidden)),
@@ -306,6 +304,14 @@ def _pair(h0, c0):
     return None if h0 is None else (h0, c0)
 
 
+_build.LIB.impl("lstm_fused", _lstm_op_cpu, "CPU")
+_build.LIB.impl("lstm_fused", _lstm_op_cuda, "CUDA")
+torch.library.register_fake("css_tpu_torch::lstm_fused", _lstm_op_fake,
+                            lib=_build.LIB)
+lstm_op = torch.ops.css_tpu_torch.lstm_fused.default
+
+
+@_build.counted
 def lstm_fused(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
                reverse: bool = False, state=None, return_state: bool = False,
                phases: Optional[torch.Tensor] = None):
@@ -355,12 +361,3 @@ def phase_split(xw: torch.Tensor, w_hh: torch.Tensor, hidden: int,
     lstm_fused(xw, w_hh, hidden, reverse, phases=phases)
     mean = (phases.double().mean(dim=0) / max(t - 1, 1)).tolist()
     return dict(zip(("wait", "stage", "product", "gates"), mean))
-
-
-lstm_fused.launches = 0
-lstm_fused.plain_routes = 0
-# the counters' owner, kept apart from the module attribute that a
-# measurement may swap for lstm_plain
-_COUNTS = lstm_fused
-# a captured program counts its launches at every replay
-programs.register_kernel(sys.modules[__name__], "lstm_fused")

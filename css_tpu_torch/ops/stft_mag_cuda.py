@@ -22,22 +22,20 @@ from the shape alone before any launch and counted in
 [4, 2048]**, runs the plain version on the card, as the reference runs
 such shapes on XLA. More than ``MAX_ROWS`` rows are split across
 launches (rows are independent, so this is exact). ``stft_mag.launches``
-counts kernel launches, a captured program's replays too
-(``utils/programs.py``).
+counts kernel launches (``ops/_build.py``), a captured program's replays
+too (``utils/programs.py``).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-import sys
 
 import numpy as np
 import torch
 
 from css_tpu_torch.ops import _build
 from css_tpu_torch.ops import stft as stft_ops
-from css_tpu_torch.utils import programs
 
 MAX_ROWS = 65535  # rows sit in gridDim.y
 MIN_FFT, MAX_FFT = 4, 2048  # the kernel's FFT lengths (shared memory)
@@ -81,6 +79,7 @@ def _tables(frame_len: int, device: torch.device):
             torch.as_tensor(window.astype(np.float32), device=device))
 
 
+@_build.counted
 def stft_mag(x: torch.Tensor, frame_len: int = 512,
              hop: int = 256) -> torch.Tensor:
     """Float32 (rows, N) -> float32 (rows, T, bins)."""
@@ -100,7 +99,7 @@ def stft_mag(x: torch.Tensor, frame_len: int = 512,
         raise ValueError(f"stft_mag kernel: unsupported shape "
                          f"{tuple(x.shape)} with frame_len {frame_len}")
     if not takes_kernel(frame_len, hop):
-        stft_mag.plain_routes += 1
+        _build.KERNELS["stft_mag"].plain_routes += 1
         return stft_mag_plain(x, frame_len, hop)
     bins = stft_ops.num_fft_bins(frame_len)
     log_m = (bins - 1).bit_length() - 1
@@ -116,11 +115,5 @@ def stft_mag(x: torch.Tensor, frame_len: int = 512,
             out[lo].data_ptr(), hi - lo, n, num_frames, hop, frame_len,
             log_m, x.device.index or 0, stream)
         _build.check(err, "stft_mag")
-        stft_mag.launches += 1
+        _build.KERNELS["stft_mag"].launches += 1
     return out
-
-
-stft_mag.launches = 0
-stft_mag.plain_routes = 0
-# a captured program counts its launches at every replay
-programs.register_kernel(sys.modules[__name__], "stft_mag")

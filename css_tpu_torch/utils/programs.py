@@ -9,9 +9,9 @@ host call. ``Program(fn, name)`` wraps a step function:
 
   * a cache keyed by the inputs' tree structure, their shapes, dtypes
     and device, the non-tensor arguments, the caller's ``mode``, and
-    what the graph bakes in: which kernel wrappers the ops modules hold
-    (a measurement may swap one for its plain version), the TF32
-    switches and the grad mode;
+    what the graph bakes in: the TF32 switches and the grad mode (a
+    measurement that swaps a kernel wrapper for its plain version runs
+    its programs under ``eager()``, so no graph holds a swapped wrapper);
   * the first call of a key runs ``fn`` eagerly. That is real work, never
     an extra step: it builds the kernels, fills the wrappers' table
     caches and lets cuBLAS pick its algorithms, none of which may happen
@@ -29,11 +29,11 @@ host call. ``Program(fn, name)`` wraps a step function:
     ``fn`` keeps its state on the card and reads none to the host.
 
 Launch counters. A kernel wrapper counts its launches on the host, once
-a call, so a capture would count them once and a replay never. Each
-wrapper registers its counters here (``register_kernel``); a capture
-records every counter's delta, takes it back (the capture launched
-nothing), and every replay adds it, so ``launches`` still counts the
-launches the card executed.
+a call, so a capture would count them once and a replay never. A capture
+records the delta of every counter registered in ``ops/_build.py``
+(``KERNELS``), takes it back (the capture launched nothing), and every
+replay adds it, so ``launches`` still counts the launches the card
+executed.
 
 On the CPU (tensors on the CPU) ``fn`` runs directly: the CPU route, as
 the kernels' plain versions are. ``eager()`` makes every program run
@@ -63,41 +63,32 @@ from typing import Callable, Dict, List, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from css_tpu_torch.ops import _build
 from css_tpu_torch.utils import trace
 
-# (module, attribute, wrapper): the wrapper holds ``launches`` and
-# ``plain_routes``; the module attribute is what the models call
-_KERNELS: List[Tuple[object, str, Callable]] = []
 _PROGRAMS = weakref.WeakSet()
 _EAGER = [False]
 _BUILD_S = [0.0]  # first calls and captures of every program, in seconds
 
 
-def register_kernel(module, name: str) -> None:
-    """Count ``module.<name>``'s launches and plain routes through
-    replays (a wrapper calls this once, when its module is imported)."""
-    _KERNELS.append((module, name, getattr(module, name)))
+def _counts() -> Dict[str, Tuple[int, int]]:
+    return {name: (fn.launches, fn.plain_routes)
+            for name, fn in _build.KERNELS.items()}
 
 
-def _counts() -> List[Tuple[int, int]]:
-    return [(fn.launches, fn.plain_routes) for _, _, fn in _KERNELS]
-
-
-def _add_counts(deltas) -> None:
-    for (_, _, fn), (launches, routes) in zip(_KERNELS, deltas):
+def _add_counts(deltas: Dict[str, Tuple[int, int]]) -> None:
+    for name, (launches, routes) in deltas.items():
+        fn = _build.KERNELS[name]
         fn.launches += launches
         fn.plain_routes += routes
 
 
-def _route() -> Tuple[bool, ...]:
-    """Whether each registered module still holds its kernel wrapper."""
-    return tuple(getattr(m, n) is fn for m, n, fn in _KERNELS)
-
-
 @contextlib.contextmanager
 def eager():
-    """Run every program's function directly, on the card as on the CPU
-    (measurements of a program against eager dispatch)."""
+    """Run every program's function directly, on the card as on the CPU:
+    for measurements of a program against eager dispatch, and for runs
+    that swap a kernel wrapper for its plain version (a graph would
+    replay the kernels it captured, whatever the wrapper now is)."""
     saved = _EAGER[0]
     _EAGER[0] = True
     try:
@@ -155,7 +146,7 @@ class Program:
         sig = tuple((tuple(x.shape), x.dtype, x.device)
                     if isinstance(x, torch.Tensor) else ("const", x)
                     for x in leaves)
-        return (str(spec), sig, mode, _route(),
+        return (str(spec), sig, mode,
                 torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32, torch.is_grad_enabled())
 
@@ -225,9 +216,11 @@ class Program:
             if collecting:
                 gc.enable()
         capture_s = time.perf_counter() - t
-        after = _counts()
-        deltas = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)]
-        _add_counts([(-d[0], -d[1]) for d in deltas])
+        deltas = {}
+        for name, (launches, routes) in _counts().items():
+            was = before.get(name, (0, 0))
+            deltas[name] = (launches - was[0], routes - was[1])
+        _add_counts({n: (-d[0], -d[1]) for n, d in deltas.items()})
         return _Entry(graph, static, out, deltas, capture_s)
 
     def pool_bytes(self) -> int:

@@ -173,7 +173,12 @@ def test_beamformer_refuses_mvdr():
         tbf.Beamformer("delay_and_sum", device="cpu")
 
 
-def test_separator_matches_and_pads_batches():
+@pytest.mark.parametrize("seconds,n", [(8, 7), (8.5, 8)],
+                         ids=["partial", "full"])
+def test_separator_matches_and_pads_batches(seconds, n):
+    """Batches of 4 windows: 7 windows (a last batch of 3, padded) and 8
+    (two full batches). Full batches reach the forward as cut from the
+    windows view; only a partial last one is padded with zero windows."""
     rng = np.random.default_rng(4)
     jm = JaxConformer(**SMALL)
     f = np.abs(rng.standard_normal((1, 150, 257))).astype(np.float32)
@@ -182,13 +187,29 @@ def test_separator_matches_and_pads_batches():
                              jnp.asarray(f)))
     from css_tpu.executor.separator import Separator as JaxSeparator
 
-    wav = (rng.standard_normal(16000 * 8) * 0.1).astype(np.float32)
+    wav = (rng.standard_normal(int(16000 * seconds)) * 0.1).astype(
+        np.float32)
     m_want, g_want = JaxSeparator(jm, v, batch_size=4).separate(wav)
     tm = Conformer(**SMALL)
     tm.load_state_dict(params_from_jax(v["params"], v["batch_stats"]))
     sep = Separator(tm.eval(), batch_size=4, device="cpu")
+    forward, batches = sep.forward, []
+
+    def recorded(batch):
+        batches.append(batch)
+        return forward(batch)
+    sep.forward = recorded
     masks, mags = sep.separate(wav)
-    assert masks.shape == m_want.shape and masks.shape[0] == 7  # 4 + 3
+    assert masks.shape == m_want.shape and masks.shape[0] == n
+    windows = torch.as_tensor(wav).unfold(0, sep.win, sep.hop)
+    assert len(batches) == -(-n // 4)
+    for i, batch in enumerate(batches):
+        real = min(4, n - 4 * i)
+        assert batch.shape == (4, sep.win)
+        assert batch._is_view() == (real == 4)
+        torch.testing.assert_close(batch[:real], windows[4 * i:4 * i + real],
+                                   atol=0, rtol=0)
+        assert not batch[real:].any()
     assert float(masks.max()) <= 1.0
     np.testing.assert_allclose(masks.numpy(), m_want, atol=1e-4)
     np.testing.assert_allclose(mags.numpy(), g_want, atol=1e-4, rtol=1e-4)

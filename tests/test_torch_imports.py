@@ -1,6 +1,8 @@
 """The port runs where the card is: with torch and numpy, and none of JAX,
-Flax, Optax, ml_dtypes, PyYAML or the css_tpu package."""
+Flax, Optax, ml_dtypes, PyYAML or the css_tpu package. Its kernel layer
+imports nothing of the layers above it."""
 
+import ast
 import os
 import re
 import subprocess
@@ -14,6 +16,11 @@ REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ["jax", "jaxlib", "flax", "optax", "ml_dtypes", "yaml", "css_tpu"]
 SOURCES = sorted((REPO / "css_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
+OPS = sorted((REPO / "css_tpu_torch" / "ops").glob("*.py"))
+# the layers above the kernels: the step programs, the spans, the
+# pipeline and the models
+ABOVE_OPS = ("css_tpu_torch.utils.programs", "css_tpu_torch.utils.trace",
+             "css_tpu_torch.executor", "css_tpu_torch.models")
 
 
 def test_every_module_imports_with_the_reference_stack_blocked():
@@ -67,6 +74,52 @@ def test_no_import_of_the_reference_stack(path):
     assert not re.search(r"\b(import|from)\s+css_tpu(?!_torch)\b", text)
     # no PyYAML anywhere: configs go through utils/config.py
     assert not re.search(r"\b(import|from)\s+yaml\b", text)
+
+
+def _imported(path) -> set:
+    """Every module or module member a file imports, anywhere in it, by
+    its absolute dotted name."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):  # relative: from ops/
+            parent = (["css_tpu_torch", "ops"][:3 - node.level]
+                      if node.level else [])
+            module = ".".join(parent + [node.module] if node.module
+                              else parent)
+            names.update(f"{module}.{a.name}" for a in node.names)
+    return names
+
+
+@pytest.mark.parametrize("path", OPS, ids=lambda p: p.name)
+def test_kernel_layer_imports_no_layer_above_it(path):
+    """ops/ is the lowest layer: a kernel wrapper registers its counters
+    in ops/_build.py, and the step programs read them there, so no module
+    of ops/ knows the programs, the spans, the pipeline or the models."""
+    above = sorted(n for n in _imported(path)
+                   if any(n == a or n.startswith(a + ".") for a in ABOVE_OPS))
+    assert not above
+
+
+def test_k2_first_call_imports_no_dynamo():
+    """K2's operator is registered on the package's one operator library,
+    not with custom_op, whose first call imports torch._dynamo: seconds of
+    set-up on the BLSTM's path."""
+    code = """
+import sys
+import torch
+from css_tpu_torch.ops import lstm_cuda
+assert "torch._dynamo" not in sys.modules
+hs = lstm_cuda.lstm_fused(torch.ones(2, 3, 16), torch.ones(4, 16), 4)
+assert hs.shape == (2, 3, 4)
+print("torch._dynamo" in sys.modules)
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "False"
 
 
 def test_chip_smoke_config_is_infer_1ch_yaml():
