@@ -23,7 +23,11 @@ Phases, each timed on its own line:
      Conformer block's conv module with its residual add, at the
      separator batch (32, 150, 256), K 33, in bf16 and float32 against the
      plain chain (KC_* bounds): its event, device (torch.profiler) and
-     CUDA-graph times beside the plain chain's, and its bytes bound.
+     CUDA-graph times beside the plain chain's, and its bytes bound. Then
+     KN, a block's residual add and LayerNorm, at the same shape in bf16
+     and float32, with y and the sum kept (the block's second site) and
+     as a plain LayerNorm (its first), against the composite (KN_*
+     bounds; the sum bit-equal), with the same times and its bytes bound.
   3. Conformer path: the committed flagship checkpoint through
      ``CssPipeline.process`` on a 60 s synthetic 2-talker session, with
      launch counts and plain-route counts reset before and read after
@@ -33,7 +37,7 @@ Phases, each timed on its own line:
        (b) float32 compute (TF32 off), with the kernels;
        (p) float32 compute on the plain versions (no kernel launch);
      KC launches once a block a separator batch in (a) and (b), none in
-     (p). (b) must match (p), and (a) must match (b) above an SI-SNR floor
+     (p); KN four times a block and once for the embedding, none in (p). (b) must match (p), and (a) must match (b) above an SI-SNR floor
      and a worst-segment SNR floor, which two stream-swapped copies of
      (b) must fail.
      Then stream re-anchoring (``executor/reanchor.py``) once on (b)'s
@@ -298,6 +302,13 @@ KERNEL_ATOL, KERNEL_RTOL = 2e-4, 1e-4
 # (tests/test_torch_cuda.py holds the same bounds)
 KC_ATOL, KC_RTOL = 2e-5, 1e-5
 KC_BF16_ATOL, KC_BF16_RTOL = 1e-4, 2.0 ** -8
+# KN (a residual add and LayerNorm) forms the sum as the composite does
+# (bit-equal) and normalises it in float32 in another summation order: in
+# float32 within 1e-5; in bf16 the two round nearly the same float32 value,
+# so they may differ by one bf16 step, 2^-7 relative
+# (tests/test_torch_cuda.py holds the same bounds)
+KN_ATOL, KN_RTOL = 1e-5, 1e-5
+KN_BF16_ATOL, KN_BF16_RTOL = 1e-4, 2.0 ** -7
 # Pipeline (b) vs (p): the feature magnitudes differ by ~1e-6 relative,
 # which moves the float32 masks and the peak-normalised (0.9) output by
 # far less than one 16-bit PCM step (3e-5); 1e-3 leaves room for a
@@ -761,21 +772,23 @@ def plain_kernels(stft_mag_cuda, istft_cuda, lstm_cuda):
     key does not hold which wrapper a module attribute names, so a graph
     captured before the swap would replay the kernels, and one captured
     inside it would replay the plain versions after it."""
+    from css_tpu_torch.ops import add_layer_norm_cuda as aln
     from css_tpu_torch.ops import conv_module_cuda as ccm
     from css_tpu_torch.utils import programs
 
     saved = (stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused,
-             ccm.conv_module)
+             ccm.conv_module, aln.takes_kernel)
     stft_mag_cuda.stft_mag = stft_mag_cuda.stft_mag_plain
     istft_cuda.istft = istft_cuda.istft_plain
     lstm_cuda.lstm_fused = lstm_cuda.lstm_plain
     ccm.conv_module = kc_plain
+    aln.takes_kernel = kn_never
     try:
         with programs.eager():
             yield
     finally:
         (stft_mag_cuda.stft_mag, istft_cuda.istft, lstm_cuda.lstm_fused,
-         ccm.conv_module) = saved
+         ccm.conv_module, aln.takes_kernel) = saved
 
 
 def kc_plain(m, x):
@@ -783,6 +796,11 @@ def kc_plain(m, x):
     from css_tpu_torch.ops import conv_module_cuda as ccm
 
     return x + ccm.conv_module_plain(m, x)
+
+
+def kn_never(norms, x):
+    """The blocks' LayerNorms on the composite (counted as plain routes)."""
+    return False
 
 
 def lstm_work(b: int, t: int, h: int, elem: int):
@@ -1312,6 +1330,75 @@ def kc_record(torch, dev, batch: int, frames: int):
         log(f"KC {label} {tuple(x.shape)} K {m.kernel_size}: "
             f"{json.dumps(case)}")
         rec[name] = case
+    return rec
+
+
+def kn_record(torch, dev, batch: int, frames: int, width: int = 256):
+    """KN, a Conformer block's residual add and LayerNorm, at the separator
+    batch (batch, frames, width), in bf16 (the flagship's compute) and
+    float32; "sum" is the block's second site (x and y read, the sum r and
+    the normalised rows written), "norm" its first (a LayerNorm of x).
+    Launched once against the composite (r bit-equal to x + 0.5 * y; the
+    rows within KN_* of the composite LayerNorm); the event,
+    profiler-device and CUDA-graph times beside the composite's in a graph
+    of the same calls, and the bytes bound with the graph time's share of
+    it."""
+    from css_tpu_torch.models.conformer import LayerNorm
+    from css_tpu_torch.ops import add_layer_norm_cuda as aln
+
+    rng = np.random.default_rng(33)
+    ln = LayerNorm(width)
+    with torch.no_grad():
+        ln.weight.copy_(torch.as_tensor(
+            1.0 + 0.3 * rng.standard_normal(width), dtype=torch.float32))
+        ln.bias.copy_(torch.as_tensor(0.3 * rng.standard_normal(width),
+                                      dtype=torch.float32))
+    ln = ln.to(dev).eval()
+    x32, y32 = (torch.as_tensor(rng.standard_normal(
+        (batch, frames, width)).astype(np.float32), device=dev)
+        for _ in range(2))
+    rec = {"shape": [batch, frames, width]}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, y = x32.to(dtype), y32.to(dtype)
+        for site in ("sum", "norm"):
+            label = f"add_layer_norm {str(dtype)[6:]} {site}"
+
+            def kernel():
+                with torch.no_grad():
+                    if site == "sum":
+                        return aln.add_layer_norm(ln, x, y, 0.5,
+                                                  keep_sum=True)
+                    return None, aln.add_layer_norm(ln, x)
+
+            def plain():
+                with torch.no_grad():
+                    r = x + 0.5 * y if site == "sum" else x
+                    return r, ln(r)
+
+            r, n = counted(aln.add_layer_norm, 1, label, kernel)
+            want_r, want = plain()
+            torch.cuda.synchronize()
+            if site == "sum" and not torch.equal(r, want_r):
+                raise AssertionError(f"{label}: the sum differs from "
+                                     f"x + 0.5 * y")
+            if dtype == torch.float32:
+                err = check_close(label, n, want, KN_ATOL, KN_RTOL)
+            else:
+                err = check_close(label, n.float(), want.float(),
+                                  KN_BF16_ATOL, KN_BF16_RTOL)
+            moved = (4 if site == "sum" else 2) * x.numel() * x.element_size()
+            bnd, by = bound_ms(10.0 * x.numel(), moved)
+            case = {"max_abs_err": err, "ms": time_ms(torch, kernel),
+                    "plain_ms": time_ms(torch, plain),
+                    "device_ms": device_ms(torch, kernel),
+                    "plain_device_ms": device_ms(torch, plain),
+                    "graph_ms": graph_ms(torch, kernel),
+                    "plain_graph_ms": graph_ms(torch, plain),
+                    "bound_ms": bnd, "bound_by": by, "bytes": moved}
+            if case["graph_ms"]:
+                case["bound_share_graph"] = bnd / case["graph_ms"]
+            log(f"KN {label} {tuple(x.shape)}: {json.dumps(case)}")
+            rec[f"{str(dtype)[6:]}_{site}"] = case
     return rec
 
 
@@ -2721,11 +2808,13 @@ def serve_path(torch, dev, results, run, mix, work) -> dict:
                 f"{art['sigmoid_tanh_nodes']} sigmoid/tanh nodes, expected "
                 f"{n_k2} K2 op nodes and no unrolled loop")
         n_kc = len(model.conformer.encoders) if name == "conformer" else 0
-        if name == "conformer" and art["port_ops"] != [
-                "css_tpu_torch.conv_module.default"] * n_kc:
-            raise AssertionError(f"(a) the Conformer's graph: "
-                                 f"{art['port_ops']}, expected {n_kc} "
-                                 f"conv module op nodes")
+        ops = {op: art["port_ops"].count(op) for op in set(art["port_ops"])}
+        if name == "conformer" and ops != {
+                "css_tpu_torch.conv_module.default": n_kc,
+                "css_tpu_torch.add_layer_norm.default": 4 * n_kc + 1}:
+            raise AssertionError(f"(a) the Conformer's graph: {ops}, "
+                                 f"expected {n_kc} conv module and "
+                                 f"{4 * n_kc + 1} add_layer_norm op nodes")
         served = CssPipeline(model, CONFIG, device=dev)
         served.separator = served_separator(work / f"{name}.pt2", dev)
         wav = pad_for_windows(torch.as_tensor(mix, device=dev),
@@ -3456,6 +3545,7 @@ def main() -> int:
     from css_tpu_torch.executor.reanchor import reanchor_streams
     from css_tpu_torch.ops import (_build, istft_cuda, lstm_cuda, native,
                                    stft_mag_cuda)
+    from css_tpu_torch.ops import add_layer_norm_cuda as aln
     from css_tpu_torch.ops import conv_module_cuda as ccm
     from css_tpu_torch.ops import stft as stft_ops
 
@@ -3717,6 +3807,8 @@ def main() -> int:
     k2_stream = k2_stream_record(torch, lstm_cuda, dev)
     # KC, the Conformer's conv module, at the separator batch
     kc = kc_record(torch, dev, batch, n_frames)
+    # KN, a block's residual add and LayerNorm, at the same batch
+    kn = kn_record(torch, dev, batch, n_frames)
     main2 = lstm_cases[0]  # hidden 512, float32, forward: the BLSTM's
     results.append({
         "name": "lstm_fused", "route": "cuda",
@@ -3782,11 +3874,20 @@ def main() -> int:
     expect = {"stft_mag": n_batches, "istft": 1, "lstm_fused": 0}
 
     out_a, counts_a, cold_a = run(pipe, mix, "a bf16 (cold)", expect)
-    # KC once a block a separator batch, through the replays
+    # KC once a block a separator batch, through the replays; KN four
+    # times a block and once for the embedding
     n_kc = len(model.conformer.encoders) * n_batches
-    _, _, warm_a = counted(ccm.conv_module, n_kc, "a bf16 (warm) KC",
-                           lambda: run(pipe, mix, "a bf16 (warm)", expect))
+    n_kn = (4 * len(model.conformer.encoders) + 1) * n_batches
+
+    def kc_kn(label, fn):
+        return counted(aln.add_layer_norm, n_kn, f"{label} KN",
+                       lambda: counted(ccm.conv_module, n_kc, f"{label} KC",
+                                       fn))
+
+    _, _, warm_a = kc_kn("a bf16 (warm)",
+                         lambda: run(pipe, mix, "a bf16 (warm)", expect))
     kc["launches"] = f"{n_kc} a {SESSION_SEC:.0f} s session"
+    kn["launches"] = f"{n_kn} a {SESSION_SEC:.0f} s session"
     for r in results:
         if r["name"] != "lstm_fused":
             r["launches"] = counts_a[r["name"]]
@@ -3797,10 +3898,13 @@ def main() -> int:
           flush=True)
 
     model.compute_dtype = torch.float32
-    out_b, _, warm_b = counted(ccm.conv_module, n_kc, "b float32 KC",
-                               lambda: run(pipe, mix, "b float32", expect))
+    out_b, _, warm_b = kc_kn("b float32",
+                             lambda: run(pipe, mix, "b float32", expect))
+    kn_before = aln.add_layer_norm.launches
     out_p, _ = counted(ccm.conv_module, 0, "p float32 plain KC",
                        lambda: plain_run(pipe, mix, "p float32 plain"))
+    if aln.add_layer_norm.launches != kn_before:
+        raise AssertionError("p float32 plain: KN launched")
     model.compute_dtype = torch.bfloat16
     pipe_err = max(float(np.abs(p - q).max()) for p, q in zip(out_b, out_p))
     if pipe_err > PIPE_ATOL:
@@ -4107,6 +4211,14 @@ def main() -> int:
         **{k: kc["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "device_ms")},
         "library_ms": None, "cases": kc})
+    results.append({
+        "name": "add_layer_norm", "route": "cuda",
+        "source": "css_tpu_torch/csrc/add_layer_norm.cu", "replaces": None,
+        "launches": kn.pop("launches"),
+        "max_abs_err": kn["float32_sum"]["max_abs_err"],
+        **{k: kn["bfloat16_sum"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "device_ms")},
+        "library_ms": None, "cases": kn})
     print(json.dumps({"kernels": results}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

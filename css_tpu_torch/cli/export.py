@@ -11,8 +11,10 @@ recurrence is the registered op ``css_tpu_torch::lstm_fused``
 (layer, direction), and a loaded artifact launches K2 on the card as the
 live model does; so does a Conformer exported on the card with its conv
 modules (``css_tpu_torch::conv_module``, ``ops/conv_module_cuda.py``, one
-node a block). ``load_exported`` imports both modules so the ops are
-registered before the archive is read. The artifact holds the weights on
+node a block) and its LayerNorms with their residual adds
+(``css_tpu_torch::add_layer_norm``, ``ops/add_layer_norm_cuda.py``, four
+nodes a block and one for the embedding). ``load_exported`` imports the
+three modules so the ops are registered before the archive is read. The artifact holds the weights on
 the device it was exported on, and serves there.
 
 The JAX package's artifact (StableHLO from ``jax.export``) and this one
@@ -73,8 +75,9 @@ def input_shape(program) -> tuple:
 def load_exported(path: str):
     """A ``.pt2`` artifact -> a callable module f (B, T, F) -> masks, with
     ``input_shape`` (B, T, F), the shape it was exported at."""
-    # register the port's ops (K2, the conv module) before the archive is read
-    from css_tpu_torch.ops import conv_module_cuda, lstm_cuda  # noqa: F401
+    # register the port's ops (K2, KC, KN) before the archive is read
+    from css_tpu_torch.ops import (add_layer_norm_cuda,  # noqa: F401
+                                   conv_module_cuda, lstm_cuda)
 
     program = torch.export.load(str(path))
     module = program.module()

@@ -27,8 +27,12 @@ conf says ``bf16``) is applied where the JAX package applies it:
     and back after it (``conformer.py:91-105``).
 On the card, a block in eval with no gradient recorded computes its conv
 module and the residual add after it as one kernel
-(``ops/conv_module_cuda.py``: float32 inside, one rounding at its output);
-training, the hop stream and the CPU run the module's composite.
+(``ops/conv_module_cuda.py``: float32 inside, one rounding at its output),
+and each of its four LayerNorms, with the residual add before it where
+there is one, as another (``ops/add_layer_norm_cuda.py``: the sum rounded
+once as the composite rounds it, the LayerNorm in float32, one rounding),
+as is the embedding's LayerNorm; the FFNs and the attention then take the
+normalised input. Training, the hop stream and the CPU run the composite.
 
 ``causal=True`` (``conformer_causal`` in a checkpoint's conf) is the
 streamable variant: running MVN (``cumulative_mvn``), attention banded to
@@ -59,7 +63,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from css_tpu_torch.ops import conv_module_cuda
+from css_tpu_torch.ops import add_layer_norm_cuda, conv_module_cuda
 from css_tpu_torch.ops.features import cumulative_mvn, mvn
 from css_tpu_torch.parallel.mesh import (all_reduce_sum, copy_to,
                                          group_size, reduce_from)
@@ -207,7 +211,11 @@ class FeedForward(nn.Module):
         self.drop = Dropout(dropout_rate)
 
     def forward(self, x):
-        x = F.relu(self.w1(copy_to(self.layer_norm(x), self.tp_group)))
+        return self.body(self.layer_norm(x))
+
+    def body(self, n):
+        """The FFN of an input already through ``layer_norm``."""
+        x = F.relu(self.w1(copy_to(n, self.tp_group)))
         return self.drop(self.w2(self.drop(x)))
 
 
@@ -235,10 +243,10 @@ class RelPosMultiHeadAttention(nn.Module):
         b, t, _ = x.shape
         return x.reshape(b, t, self.n_head, self.d_k).transpose(1, 2)
 
-    def _qkv(self, x):
-        x = copy_to(self.layer_norm(x), self.tp_group)
-        return (self._heads(self.linear_q(x)), self._heads(self.linear_k(x)),
-                self._heads(self.linear_v(x)))
+    def _project(self, n):
+        n = copy_to(n, self.tp_group)
+        return (self._heads(self.linear_q(n)), self._heads(self.linear_k(n)),
+                self._heads(self.linear_v(n)))
 
     def _attend(self, q, k, v, pos_k, mask):
         """q (B, h, T, d), k and v (B, h, S, d), pos_k (T, S, d) or None,
@@ -267,7 +275,11 @@ class RelPosMultiHeadAttention(nn.Module):
     def forward(self, x, pos_k, mask=None):
         """x (B, T, n_feat), pos_k (T, T, d_k) or None, mask (T, T) bool
         (True where query t may attend key s) or None."""
-        return self._attend(*self._qkv(x), pos_k, mask)
+        return self.attend(self.layer_norm(x), pos_k, mask)
+
+    def attend(self, n, pos_k, mask=None):
+        """The attention of an input already through ``layer_norm``."""
+        return self._attend(*self._project(n), pos_k, mask)
 
     def stream(self, x, cache, pos_k, mask):
         """A chunk (B, Tc, n_feat) attending [cached left context | the
@@ -275,7 +287,7 @@ class RelPosMultiHeadAttention(nn.Module):
         pos_k (Tc, L + Tc, d) and mask (Tc, L + Tc) over that key axis.
         Returns (out, the cache rolled to the last L key positions)."""
         k_c, v_c, valid = cache
-        q, k, v = self._qkv(x)
+        q, k, v = self._project(self.layer_norm(x))
         k_all = torch.cat([k_c, k], dim=2)
         v_all = torch.cat([v_c, v], dim=2)
         valid_all = torch.cat([valid, valid.new_ones(q.shape[2])])
@@ -357,12 +369,34 @@ class EncoderLayer(nn.Module):
                                             tp_group)
         self.layer_norm = LayerNorm(d_model)
 
+    def norms(self):
+        """The block's LayerNorms that ``add_layer_norm`` computes, in
+        order (the conv module's runs inside its own kernel)."""
+        return (self.feed_forward_in.layer_norm, self.self_attn.layer_norm,
+                self.feed_forward_out.layer_norm, self.layer_norm)
+
     def forward(self, x, pos_k, mask=None):
+        if add_layer_norm_cuda.takes_kernel(self.norms(), x):
+            return self._forward_kernels(x, pos_k, mask)
+        add_layer_norm_cuda.count_plain(x)
         x = x + 0.5 * self.feed_forward_in(x)
         x = x + self.self_attn(x, pos_k, mask)
         x = conv_module_cuda.conv_module(self.conv, x)  # x + self.conv(x)
         x = x + 0.5 * self.feed_forward_out(x)
         return self.layer_norm(x)
+
+    def _forward_kernels(self, x, pos_k, mask):
+        """``forward`` with each LayerNorm, and the residual add before it,
+        as one ``add_layer_norm``: the sums and normalised rows in the
+        compute dtype, rounded where the composite rounds them."""
+        ln_ffn_in, ln_attn, ln_ffn_out, ln_out = self.norms()
+        kn = add_layer_norm_cuda.add_layer_norm
+        y = self.feed_forward_in.body(kn(ln_ffn_in, x))
+        x, n = kn(ln_attn, x, y, 0.5, keep_sum=True)
+        x = x + self.self_attn.attend(n, pos_k, mask)
+        x = conv_module_cuda.conv_module(self.conv, x)  # x + self.conv(x)
+        y = self.feed_forward_out.body(kn(ln_ffn_out, x))
+        return kn(ln_out, x, y, 0.5)
 
     def stream(self, x, state, pos_k, mask):
         """state = (the attention's KV cache, the conv tail)."""
@@ -432,7 +466,13 @@ class ConformerEncoder(nn.Module):
         return F.relu(self.embed_drop(self.embed_norm(self.embed_linear(xs))))
 
     def forward(self, xs):
-        xs = self._embed(xs)
+        xs = self.embed_linear(xs)
+        if add_layer_norm_cuda.takes_kernel((self.embed_norm,), xs):
+            xs = F.relu(add_layer_norm_cuda.add_layer_norm(self.embed_norm,
+                                                           xs))
+        else:
+            add_layer_norm_cuda.count_plain(xs)
+            xs = F.relu(self.embed_drop(self.embed_norm(xs)))
         rel = self._offsets(xs.shape[1])
         pos_k = self.rel_pos(rel) if self.pe_k is not None else None
         mask = ((rel >= 0) & (rel < self.left_context) if self.causal

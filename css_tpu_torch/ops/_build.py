@@ -14,9 +14,9 @@ finished build is reused. Every file is written under a temporary name and
 moved into place with ``os.replace``, so concurrent builders never see a
 partial library.
 
-``LIB`` holds the kernels that ``torch.export`` keeps as one node (K2, KC),
-each defined with a CPU kernel (the plain version), a CUDA kernel (the
-launch) and a fake kernel. Not with ``torch.library``'s ``custom_op``,
+``LIB`` holds the kernels that ``torch.export`` keeps as one node (K2, KC,
+KN), each defined with a CPU kernel (the plain version), a CUDA kernel
+(the launch) and a fake kernel. Not with ``torch.library``'s ``custom_op``,
 whose first call imports ``torch._dynamo``: seconds of set-up.
 
 ``@counted`` registers a kernel wrapper in ``KERNELS`` with its counters
@@ -59,6 +59,7 @@ SIGNATURES = {
     "css_stft_mag": [_P] * 4 + [_I] * 7 + [_P],
     "css_lstm": [_P] * 8 + [_I] * 13 + [_P],
     "css_conv_module": [_P] * 14 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P],
+    "css_add_layer_norm": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_I] * 2 + [_P],
 }
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from css_tpu.models import conformer as jc
 from css_tpu_torch.models import conformer as tc
+from css_tpu_torch.ops import add_layer_norm_cuda as aln
 from css_tpu_torch.ops import conv_module_cuda as ccm
 
 SMALL = dict(attention_dim=64, attention_heads=4, linear_units=128,
@@ -425,3 +426,196 @@ def test_conv_module_operator_refuses_what_the_kernel_does_not_take(
         params[7] = params[7].double()
     with pytest.raises(ValueError):
         ccm.conv_module_op(x, params, *pad, 1e-5, 1e-5)
+
+
+# ------------------------------------- the LayerNorms' route (KN)
+# (ops/add_layer_norm_cuda.py: the kernel runs only on the card, its route
+# and operator are held here)
+
+
+def _block(small_pair, width=64):
+    """A copy of block 1 of the small pair in eval; at other widths a
+    fresh block."""
+    m = tc.EncoderLayer(width, 4, 128, 7)
+    if width == 64:
+        m.load_state_dict(small_pair[2].conformer.encoders[1].state_dict())
+    return m.eval()
+
+
+# case -> (block width, x, train mode, grad on, takes it)
+KN_ROUTES = {
+    "bf16": (64, _on_card((32, 150, 64)), False, False, True),
+    "float32": (64, _on_card((32, 150, 64), torch.float32), False, False,
+                True),
+    "full_width": (256, _on_card((32, 150, 256)), False, False, True),
+    "cpu": (64, torch.zeros((2, 20, 64)), False, False, False),
+    "train_mode": (64, _on_card((32, 150, 64)), True, False, False),
+    "grad_on": (64, _on_card((32, 150, 64)), False, True, False),
+    "float16": (64, _on_card((32, 150, 64), torch.float16), False, False,
+                False),
+    "wide": (2048, _on_card((2, 20, 2048)), False, False, False),
+    "width_not_8n": (60, _on_card((2, 20, 60)), False, False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KN_ROUTES))
+def test_add_layer_norm_takes_the_kernel_only_where_it_applies(small_pair,
+                                                              case):
+    """takes_kernel: x on CUDA in float32 or bf16, the LayerNorms in eval
+    with float32 parameters, no gradient recorded, C <= 1024 a multiple of
+    8; every other case (the CPU, training, grad on, float16, widths past
+    the plan) is the composite."""
+    width, x, train, grad, takes = KN_ROUTES[case]
+    m = _block(small_pair, width).train(train)
+    with torch.set_grad_enabled(grad):
+        assert aln.takes_kernel(m.norms(), x) is takes
+
+
+def test_add_layer_norm_float16_parameters_take_the_composite(small_pair):
+    m = _block(small_pair)
+    m.layer_norm.half()
+    with torch.no_grad():
+        assert not aln.takes_kernel(m.norms(), _on_card((2, 20, 64)))
+        assert aln.takes_kernel(m.norms()[:3], _on_card((2, 20, 64)))
+
+
+def test_add_layer_norm_plain_routes_are_counted_off_the_cpu(small_pair):
+    before = aln.add_layer_norm.launches, aln.add_layer_norm.plain_routes
+    with torch.no_grad():  # the CPU: the composite, nothing counted
+        small_pair[2](torch.as_tensor(np.abs(_x((1, 20, 257), 3))))
+    assert (aln.add_layer_norm.launches,
+            aln.add_layer_norm.plain_routes) == before
+    aln.count_plain(_on_card((1, 1, 8)))
+    assert aln.add_layer_norm.plain_routes == before[1] + 1
+    aln.add_layer_norm.plain_routes = before[1]
+
+
+def _ln(width, seed):
+    """A LayerNorm with weight and bias drawn off their init."""
+    ln = tc.LayerNorm(width)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        ln.weight.copy_(torch.as_tensor(
+            1.0 + 0.3 * rng.standard_normal(width), dtype=torch.float32))
+        ln.bias.copy_(torch.as_tensor(
+            0.3 * rng.standard_normal(width), dtype=torch.float32))
+    return ln.eval()
+
+
+@pytest.mark.parametrize("with_y", [False, True], ids=["x", "x_y"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_add_layer_norm_operator_is_the_composite(dtype, with_y):
+    """The operator's CPU kernel against the block's composite: r bit-equal
+    to ``x + 0.5 * y`` in the compute dtype, and the normalised rows
+    equal to the composite LayerNorm of that sum (the same float32
+    function; the card's kernel sums in another order, held in
+    tests/test_torch_cuda.py)."""
+    ln = _ln(64, 10)
+    x = (torch.as_tensor(_x((3, 37, 64), 11)) * 4.0).to(dtype)
+    y = (torch.as_tensor(_x((3, 37, 64), 12)) * 4.0).to(dtype)
+    with torch.no_grad():
+        if with_y:
+            want_r = x + 0.5 * y
+            r, n = aln.add_layer_norm(ln, x, y, 0.5, keep_sum=True)
+            assert r.dtype == dtype and torch.equal(r, want_r)
+            assert torch.equal(aln.add_layer_norm(ln, x, y, 0.5), n)
+        else:
+            want_r = x
+            n = aln.add_layer_norm(ln, x)
+        want = ln(want_r)
+    assert n.dtype == dtype
+    torch.testing.assert_close(n, want, atol=0, rtol=0)
+    ref = F.layer_norm(want_r.double(), (64,), ln.weight.double(),
+                       ln.bias.double(), ln.eps)
+    torch.testing.assert_close(n.double(), ref, atol=1e-5,
+                               rtol=2.0 ** -8 if dtype == torch.bfloat16
+                               else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["offline", "causal"])
+def test_block_route_through_the_operator(small_pair, monkeypatch, causal,
+                                          dtype):
+    """With the route forced on the CPU, every LayerNorm of every block and
+    the embedding's run through the registered operator (its CPU kernel:
+    the kernel's function), in the order and with the operands the card
+    passes: the model's masks are those of the composite, bit for bit (the
+    sums round as the composite's do, the LayerNorm is the same float32
+    function)."""
+    conf = {"conformer_attention_dim": 64, "conformer_attention_heads": 4,
+            "conformer_linear_units": 128, "conformer_num_blocks": 2,
+            "conformer_kernel_size": 7, "conformer_causal": causal,
+            "bf16": dtype == torch.bfloat16}
+    tm = tc.build_model(conf)
+    tm.load_state_dict(small_pair[2].state_dict())
+    f = torch.as_tensor(np.abs(_x((2, 40, 257), 13)))
+    with torch.no_grad():
+        _, want = tm.eval()(f)
+        calls = []
+        op = aln.add_layer_norm_op
+
+        def counted_op(x, y, alpha, weight, bias, eps, keep_sum):
+            calls.append((y is not None, alpha, keep_sum, x.dtype))
+            return op(x, y, alpha, weight, bias, eps, keep_sum)
+
+        monkeypatch.setattr(aln, "takes_kernel", lambda norms, x: True)
+        monkeypatch.setattr(aln, "add_layer_norm_op", counted_op)
+        _, got = tm(f)
+    block = [(False, 1.0, False, dtype), (True, 0.5, True, dtype),
+             (False, 1.0, False, dtype), (True, 0.5, False, dtype)]
+    assert calls == [(False, 1.0, False, dtype)] + block * 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_add_layer_norm_operator_fake_and_schema(dtype):
+    """The fake kernel gives x's shape and dtype, and r's only where it is
+    kept (what torch.export traces); opcheck holds the schema, the fake
+    against the CPU kernel and no aliasing, with and without y."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    ln = _ln(64, 14)
+    w, b = ln.weight.detach(), ln.bias.detach()
+    with FakeTensorMode():
+        fx = torch.empty((4, 150, 64), dtype=dtype)
+        fw, fb = torch.empty(64), torch.empty(64)
+        n, r = aln.add_layer_norm_op(fx, fx, 0.5, fw, fb, 1e-5, True)
+        n1, r1 = aln.add_layer_norm_op(fx, None, 1.0, fw, fb, 1e-5, False)
+    assert n.shape == r.shape == n1.shape == (4, 150, 64)
+    assert n.dtype == r.dtype == n1.dtype == dtype and r1.numel() == 0
+    x = torch.as_tensor(_x((2, 20, 64), 15)).to(dtype)
+    y = torch.as_tensor(_x((2, 20, 64), 16)).to(dtype)
+    torch.library.opcheck(aln.add_layer_norm_op,
+                          (x, y, 0.5, w, b, 1e-5, True))
+    torch.library.opcheck(aln.add_layer_norm_op,
+                          (x, None, 1.0, w, b, 1e-5, False))
+
+
+@pytest.mark.parametrize("case", ["x_float16", "y_dtype", "y_shape",
+                                  "weight_dtype", "bias_shape", "wide",
+                                  "width_not_8n", "keep_sum_no_y"])
+def test_add_layer_norm_operator_refuses_what_the_kernel_does_not_take(
+        case):
+    width = {"wide": 2048, "width_not_8n": 60}.get(case, 64)
+    ln = _ln(width, 17)
+    w, b = ln.weight.detach(), ln.bias.detach()
+    x = torch.zeros((2, 20, width))
+    y = torch.zeros((2, 20, width))
+    keep = True
+    if case == "x_float16":
+        x, y = x.half(), y.half()
+    elif case == "y_dtype":
+        y = y.bfloat16()
+    elif case == "y_shape":
+        y = y[:, :10]
+    elif case == "weight_dtype":
+        w = w.double()
+    elif case == "bias_shape":
+        b = b[:32]
+    elif case == "keep_sum_no_y":
+        y = None
+    with pytest.raises(ValueError):
+        aln.add_layer_norm_op(x, y, 0.5, w, b, 1e-5, keep)

@@ -19,13 +19,18 @@ The conv module's kernel (KC) keeps float32 inside and rounds once: in
 float32 it differs from the plain chain by summation order, 2e-5 absolute
 and 1e-5 relative; in bf16 it lies within one rounding (2^-8 relative)
 of the float32 chain, and no farther from the plain bf16 chain than that
-chain's own rounding error plus one rounding.
+chain's own rounding error plus one rounding. The residual add and
+LayerNorm kernel (KN) forms the sum as ``x + 0.5 * y`` does (bit-equal) and
+normalises it in float32 in another order than PyTorch's LayerNorm: 1e-5
+absolute and relative in float32; in bf16 both round nearly the same
+float32 value, so one bf16 step apart at most (2^-7 relative).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from css_tpu_torch.ops import add_layer_norm_cuda as aln
 from css_tpu_torch.ops import conv_module_cuda as ccm
 from css_tpu_torch.ops import istft_cuda, lstm_cuda, stft_mag_cuda
 from css_tpu_torch.ops import stft as stft_ops
@@ -34,6 +39,8 @@ pytestmark = pytest.mark.cuda
 ATOL, RTOL = 2e-4, 1e-4
 LSTM_BF16_ATOL = 3e-2
 LSTM_F32_MAX_ERR = 5e-6
+KN_ATOL = KN_RTOL = 1e-5
+KN_BF16_ATOL, KN_BF16_RTOL = 1e-4, 2.0 ** -7
 
 
 @pytest.fixture
@@ -783,8 +790,10 @@ def test_conformer_routes_its_conv_modules_on_the_card(card):
 
 def test_exported_conformer_keeps_the_conv_module_op(card, tmp_path):
     """A small Conformer exported with torch.export on the card holds its
-    conv modules as one css_tpu_torch::conv_module node a block, and the
-    served artifact launches the kernel as the live model does."""
+    conv modules as one css_tpu_torch::conv_module node a block (and its
+    LayerNorms as four css_tpu_torch::add_layer_norm nodes a block and one
+    for the embedding), and the served artifact launches the kernels as
+    the live model does."""
     from css_tpu_torch.cli import export
     from css_tpu_torch.models.conformer import Conformer
 
@@ -796,17 +805,22 @@ def test_exported_conformer_keeps_the_conv_module_op(card, tmp_path):
     ops = [str(n.target) for n in program.graph.nodes
            if n.op == "call_function"
            and str(n.target).startswith("css_tpu_torch.")]
-    assert ops == ["css_tpu_torch.conv_module.default"] * 2
+    assert [op for op in ops if "conv_module" in op] == [
+        "css_tpu_torch.conv_module.default"] * 2
+    assert [op for op in ops if "conv_module" not in op] == [
+        "css_tpu_torch.add_layer_norm.default"] * 9
     torch.export.save(program, tmp_path / "c.pt2")
     served = export.load_exported(tmp_path / "c.pt2")
     f = _signal((4, 150, 257), 8, card).abs()
-    before = ccm.conv_module.launches
+    before = ccm.conv_module.launches, aln.add_layer_norm.launches
     with torch.no_grad():
         got = served(f)
         torch.cuda.synchronize()
-        assert ccm.conv_module.launches == before + 2
+        assert ccm.conv_module.launches == before[0] + 2
+        assert aln.add_layer_norm.launches == before[1] + 9
         want = torch.clamp(model(f)[1], max=1.0)
-    assert ccm.conv_module.launches == before + 4
+    assert ccm.conv_module.launches == before[0] + 4
+    assert aln.add_layer_norm.launches == before[1] + 18
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
 
 
@@ -883,3 +897,170 @@ def test_pipeline_streams_through_host_blocks_equal_the_pageable_copy(card):
     assert len(pooled) == len(plain) == 2
     for a, b in zip(pooled, plain):
         assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b)
+
+
+def _layer_norm(width, seed, dev):
+    """A Conformer LayerNorm in eval on the card, weight and bias drawn off
+    their init from a numpy seed."""
+    from css_tpu_torch.models.conformer import LayerNorm
+
+    rng = np.random.default_rng(seed)
+    ln = LayerNorm(width)
+    with torch.no_grad():
+        ln.weight.copy_(torch.as_tensor(
+            1.0 + 0.3 * rng.standard_normal(width), dtype=torch.float32))
+        ln.bias.copy_(torch.as_tensor(0.3 * rng.standard_normal(width),
+                                      dtype=torch.float32))
+    return ln.to(dev).eval()
+
+
+def _misaligned(x):
+    """x's values in a contiguous tensor whose data starts 2 elements past
+    a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+    out = flat[2:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 and out.is_contiguous()
+    return out
+
+
+# case -> (B, T, C, misaligned): the separator batch of the Conformer cells,
+# odd row counts (rows not a multiple of the block's 4), the widest the plan
+# takes, a width that leaves lanes idle, and a misaligned x and y
+KN_CASES = {"cell": (32, 150, 256, False),
+            "odd_rows": (3, 37, 256, False),
+            "one_row": (1, 1, 256, False),
+            "wide": (2, 21, 1024, False),
+            "narrow": (5, 7, 40, False),
+            "misaligned": (4, 150, 256, True)}
+
+
+@pytest.mark.parametrize("with_y", [False, True], ids=["x", "x_y"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(KN_CASES))
+def test_add_layer_norm_kernel_matches_plain(card, case, dtype, with_y):
+    """KN once against the block's composite: the sum bit-equal to
+    ``x + 0.5 * y`` in the compute dtype, the rows within KN_* of the
+    composite LayerNorm of that sum, one launch and no plain route."""
+    b, t, c, misaligned = KN_CASES[case]
+    ln = _layer_norm(c, 1, card)
+    x = (_signal((b, t, c), 2, card) * 40.0).to(dtype)
+    y = (_signal((b, t, c), 3, card) * 40.0).to(dtype)
+    if misaligned:
+        x, y = _misaligned(x), _misaligned(y)
+    before = aln.add_layer_norm.launches, aln.add_layer_norm.plain_routes
+    with torch.no_grad():
+        if with_y:
+            r, n = aln.add_layer_norm(ln, x, y, 0.5, keep_sum=True)
+            want_r = x + 0.5 * y
+        else:
+            n, want_r = aln.add_layer_norm(ln, x), x
+        torch.cuda.synchronize()
+        want = ln(want_r)
+    assert (aln.add_layer_norm.launches,
+            aln.add_layer_norm.plain_routes) == (before[0] + 1, before[1])
+    if with_y:
+        assert r.dtype == dtype and torch.equal(r, want_r)
+    assert n.dtype == dtype and n.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(n, want, atol=KN_ATOL, rtol=KN_RTOL)
+    else:
+        torch.testing.assert_close(n.float(), want.float(),
+                                   atol=KN_BF16_ATOL, rtol=KN_BF16_RTOL)
+
+
+def test_add_layer_norm_without_the_sum_writes_the_same_rows(card):
+    """The block's last site (the sum not kept) writes the rows the kept
+    variant writes, bit for bit."""
+    ln = _layer_norm(256, 4, card)
+    x, y = ((_signal((32, 150, 256), s, card) * 40.0).bfloat16()
+            for s in (5, 6))
+    with torch.no_grad():
+        _, kept = aln.add_layer_norm(ln, x, y, 0.5, keep_sum=True)
+        assert torch.equal(aln.add_layer_norm(ln, x, y, 0.5), kept)
+
+
+def test_add_layer_norm_replay_is_bit_equal_to_eager(card):
+    """The kernel captured in a program: every replay counted once, each
+    output bit-equal to an eager call on the same inputs."""
+    from css_tpu_torch.utils import programs
+
+    ln = _layer_norm(256, 7, card)
+    prog = programs.Program(
+        lambda x, y: aln.add_layer_norm(ln, x, y, 0.5, keep_sum=True),
+        "test_kn")
+    xs = [tuple((_signal((32, 150, 256), 2 * s + i, card) * 40.0).bfloat16()
+                for i in range(2)) for s in range(4)]
+    before = aln.add_layer_norm.launches
+    with torch.no_grad():
+        outs = [prog(x, y) for x, y in xs]
+        torch.cuda.synchronize()
+        assert aln.add_layer_norm.launches == before + len(xs)
+        eager = [aln.add_layer_norm(ln, x, y, 0.5, keep_sum=True)
+                 for x, y in xs]
+    assert prog.summary()["replays"] == len(xs) - 1
+    for out, want in zip(outs, eager):
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_add_layer_norm_op_cuda_kernel_passes_opcheck(card, dtype):
+    ln = _layer_norm(64, 8, card)
+    w, b = ln.weight.detach(), ln.bias.detach()
+    x, y = (_signal((3, 21, 64), s, card).to(dtype) for s in (9, 10))
+    before = aln.add_layer_norm.launches
+    torch.library.opcheck(aln.add_layer_norm_op,
+                          (x, y, 0.5, w, b, 1e-5, True))
+    torch.library.opcheck(aln.add_layer_norm_op,
+                          (x, None, 1.0, w, b, 1e-5, False))
+    assert aln.add_layer_norm.launches > before
+
+
+def test_add_layer_norm_kernel_refuses_what_it_does_not_take(card):
+    ln = _layer_norm(256, 11, card)
+    x = _signal((2, 20, 256), 12, card)
+    with pytest.raises(ValueError):  # float16
+        aln.add_layer_norm(ln, x.half())
+    with pytest.raises(ValueError):  # y on another dtype
+        aln.add_layer_norm(ln, x, x.bfloat16(), 0.5)
+    with pytest.raises(ValueError):  # parameters off the card
+        aln.add_layer_norm_op(x, None, 1.0, ln.weight.cpu(), ln.bias.cpu(),
+                              1e-5, False)
+
+
+def test_conformer_routes_its_layer_norms_on_the_card(card):
+    """A small Conformer on the card: in eval with no gradient, four KN
+    launches a block and one for the embedding, and masks within a float32
+    summation order of the composite's (float32 model); in training every
+    block and the embedding take the composite, counted; the hop stream
+    launches none and counts nothing."""
+    from css_tpu_torch.models.conformer import Conformer
+
+    conf = {"conformer_attention_dim": 64, "conformer_attention_heads": 4,
+            "conformer_linear_units": 128, "conformer_num_blocks": 2,
+            "conformer_kernel_size": 7, "conformer_dropout_rate": 0.0,
+            "conformer_causal": True, "conformer_left_context": 16}
+    torch.manual_seed(0)
+    model = Conformer.build_model(conf).to(card)
+    f = _signal((2, 40, 257), 13, card).abs()
+    launches = aln.add_layer_norm.launches
+    routes = aln.add_layer_norm.plain_routes
+    with torch.no_grad():
+        _, got = model.eval()(f)
+        assert aln.add_layer_norm.launches == launches + 9
+        saved = aln.takes_kernel
+        aln.takes_kernel = lambda norms, x: False
+        try:
+            _, want = model(f)
+        finally:
+            aln.takes_kernel = saved
+    assert aln.add_layer_norm.plain_routes == routes + 3
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    model.train()(f)[1].sum().backward()
+    assert aln.add_layer_norm.plain_routes == routes + 6
+    carry = model.eval().stream_init(2)
+    model.stream(f[:, :8], carry)
+    assert aln.add_layer_norm.launches == launches + 9
+    assert aln.add_layer_norm.plain_routes == routes + 6

@@ -67,4 +67,5 @@ def test_library_name_follows_the_sources():
         "css_tpu_torch")
     assert path.name.startswith("libcss_kernels_") and path.suffix == ".so"
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "conv_module.cu", "istft.cu", "lstm.cu", "stft_mag.cu"]
+        "add_layer_norm.cu", "conv_module.cu", "istft.cu", "lstm.cu",
+        "stft_mag.cu"]
