@@ -33,6 +33,7 @@ import torch
 
 from css_tpu_torch.device import resolve_device
 from css_tpu_torch.executor.windowing import EXTRA_SAMPLES
+from css_tpu_torch.executor.separator import require_masks
 from css_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -57,6 +58,7 @@ def export_forward(model: torch.nn.Module, batch_size: int, num_frames: int,
     (batch_size, num_frames, feature_dim) on ``device`` -> the
     ExportedProgram (save it with ``torch.export.save``). The model is
     moved to ``device`` and put in eval mode."""
+    require_masks(model, "the exported forward")
     dev = resolve_device(device)
     model = model.to(dev).eval()
     example = torch.zeros((batch_size, num_frames, feature_dim),

@@ -203,9 +203,25 @@ class Beamformer:
             tw = [mw[:b].transpose(1, 2) for mw in mask_windows]
             wavs = self._process(wav_windows[:b].contiguous(),
                                  torch.stack(tw[:-1], dim=1), tw[-1])
-            outs = []
-            for s in range(wavs.shape[1]):
-                res = self._assemble(wavs[:, s], total)
-                outs.append(res * 0.9
-                            / torch.clamp(res.abs().max(), min=1e-12))
-            return tuple(outs)
+            return self._streams(wavs, total)
+
+    def _streams(self, wavs: torch.Tensor, total: int
+                 ) -> Tuple[torch.Tensor, ...]:
+        """Per-window streams (B, K, N) -> K waveforms (total,), each
+        assembled on the proceed-margin partition and peak-normalised to
+        0.9."""
+        outs = []
+        for s in range(wavs.shape[1]):
+            res = self._assemble(wavs[:, s], total)
+            outs.append(res * 0.9 / torch.clamp(res.abs().max(), min=1e-12))
+        return tuple(outs)
+
+    @torch.no_grad()
+    def assemble(self, wavs: torch.Tensor, total: int
+                 ) -> Tuple[torch.Tensor, ...]:
+        """A time-domain model's routed per-window streams (B, K, N) -> K
+        waveforms (total,), as ``continuous_process`` ends: the
+        proceed-margin partition and the 0.9 peak, with no STFT, no dedup
+        and no K1. A ``beamformer`` span."""
+        with trace.span("beamformer"):
+            return self._streams(wavs, total)

@@ -40,6 +40,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from css_tpu_torch.device import resolve_device
+from css_tpu_torch.executor.separator import require_masks
 from css_tpu_torch.ops import stft as stft_ops
 from css_tpu_torch.utils.programs import Program
 
@@ -57,6 +58,7 @@ class HopStreamingPipeline:
     def __init__(self, model: torch.nn.Module, config: dict, sr: int = 16000,
                  chunk_frames: int = 8,
                  device: Union[str, torch.device] = "cuda"):
+        require_masks(model, "hop streaming")
         if not getattr(model, "causal", False):
             raise ValueError(
                 "hop streaming needs a causal model (e.g. BLSTM built with "

@@ -11,14 +11,24 @@ splits the windows of a recording over ``shard_devices`` (default: every
 visible card; ``executor/sharded.py``), stitches them on the first, and
 resynthesises there as the default path does.
 
+A time-domain model (``domain = "time"``, Conv-TasNet) takes its own
+path, decided once at construction: the separator's per-window
+waveforms, the stitcher's boundary permutations on the samples
+neighbouring windows share (``Stitcher.waves``), and the beamformer's
+proceed-margin assembly and peak (``Beamformer.assemble``), with no STFT,
+no dedup and no K1. It reads channel 0 of a (C, T) recording; sharded
+separation does not take it (``ValueError``).
+
 ``process`` is a ``session`` span (``utils/trace.py``) holding
 ``upload``, ``separator``, ``stitcher``, ``beamformer``, ``to_host``
-and ``reanchor``, with the counters ``sessions``, ``audio_samples``,
+and ``reanchor`` (a time-domain model's ``stitcher`` holds
+``stitcher.wave``), with the counters ``sessions``, ``audio_samples``,
 ``bytes_up``, ``bytes_down``, on a CUDA device one of ``to_host_reused``,
 ``to_host_pinned`` and ``to_host_pageable`` (``executor/host_blocks.py``:
 the streams come back through page-locked blocks reused across sessions)
 and, with the DOA merge, ``merge_kills`` (the separator's device count,
-read after ``to_host`` and only while tracing).
+read after ``to_host`` and only while tracing); a time-domain model's
+stitcher counts ``stitch_swaps``.
 """
 
 from __future__ import annotations
@@ -107,8 +117,9 @@ class CssPipeline:
         # on the CPU the streams are host memory already
         self.host_blocks = (HostBlocks() if self.device.type == "cuda"
                             else None)
-        # only these read channels other than channel 0
-        self.reads_all_channels = bool(
+        # only these read channels other than channel 0; a time-domain
+        # model reads channel 0 and beamforms nothing
+        self.reads_all_channels = not self.separator.time_domain and bool(
             sep.get("ipd") or self.separator.merge
             or self.beamformer.bf_type == "souden_mvdr")
 
@@ -134,13 +145,17 @@ class CssPipeline:
                 wav = torch.as_tensor(wav, device=self.device)
                 wav = pad_for_windows(wav, self.separator.win,
                                       self.separator.hop)
-            if self.sharded is not None:
-                stitched = [s.to(self.device)
-                            for s in self.sharded.separate(wav)[0]]
+            if self.separator.time_domain:
+                streams = self.stitcher.waves(self.separator.separate(wav)[0])
+                outs = self.beamformer.assemble(streams, wav.shape[-1])
             else:
-                masks, mags = self.separator.separate(wav)
-                stitched = self.stitcher(masks, mags)
-            outs = self.beamformer.continuous_process(wav, stitched)
+                if self.sharded is not None:
+                    stitched = [s.to(self.device)
+                                for s in self.sharded.separate(wav)[0]]
+                else:
+                    masks, mags = self.separator.separate(wav)
+                    stitched = self.stitcher(masks, mags)
+                outs = self.beamformer.continuous_process(wav, stitched)
             with trace.span("to_host"):
                 if self.host_blocks is not None:
                     outs = self.host_blocks.to_host(outs, total)

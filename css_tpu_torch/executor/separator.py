@@ -1,4 +1,5 @@
-"""Chunked separator: long recording -> per-window TF masks.
+"""Chunked separator: long recording -> per-window TF masks, or per-window
+waveforms from a time-domain model.
 
 Port of ``css_tpu/executor/separator.py``: the recording, (T,) or
 (C, T), is cut into sliding windows, the windows run through features +
@@ -7,6 +8,12 @@ cut, the last, partial one padded with zero windows and sliced back, so
 every forward has one shape), and the masks are clamped at 1. With
 ``merge`` (7ch) the DOA merge (``executor/doa.py``) kills the weaker of
 the two speaker masks in every window whose two DOAs coincide. Everything stays on ``device``.
+
+A time-domain model (``domain = "time"``, Conv-TasNet) takes the (B, N)
+windows themselves: the forward runs no K3 and no clamp and gives the
+(B, K, N) float32 speaker waveforms, zero-padded to the window where the
+decoder's frames end short of it. The path is decided once, here, from
+the model.
 
 On the card ``forward`` is one captured CUDA graph a (batch, [channels,]
 window, compute dtype) (``utils/programs.py``), the counterpart of the
@@ -28,6 +35,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from css_tpu_torch.device import resolve_device
 from css_tpu_torch.executor.doa import SteeringVectors, kill_masks
@@ -35,6 +43,19 @@ from css_tpu_torch.executor.windowing import EXTRA_SAMPLES, unfold
 from css_tpu_torch.ops.features import FeatureExtractor
 from css_tpu_torch.utils import trace
 from css_tpu_torch.utils.programs import Program
+
+
+def require_masks(model, where: str) -> None:
+    """Raise a ``ValueError`` naming ``where`` for a time-domain model
+    (``domain = "time"``): paths built on K3 features and masks
+    (sharded separation, streaming, the exported forward, the IPD
+    features and the DOA merge) do not take one; ``CssPipeline.process``
+    does."""
+    if getattr(model, "domain", "mask") == "time":
+        raise ValueError(
+            f"{where} runs mask estimators on STFT features; "
+            f"{type(model).__name__} separates waveforms in the time domain, "
+            "which only the offline CssPipeline.process path runs")
 
 
 class Separator:
@@ -66,6 +87,9 @@ class Separator:
                              "artifact (exported_path=), exactly one")
         self.device = resolve_device(device)
         self.model = model
+        self.time_domain = getattr(model, "domain", "mask") == "time"
+        if merge or ipd_index:
+            require_masks(model, "the IPD features and the DOA merge")
         self.exported = None
         if exported_path is not None:
             from css_tpu_torch.cli.export import load_exported
@@ -87,10 +111,12 @@ class Separator:
 
     @torch.no_grad()
     def forward(self, wav_batch: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                           Optional[torch.Tensor]]:
         """(B, N) or (B, C, N) windows -> (masks (B, T, F, S) clamped at 1,
-        mag (B, T, F), kill (B, 2) bool from the DOA merge or None): one
-        program replay on the card."""
+        mag (B, T, F), kill (B, 2) bool from the DOA merge or None), or for
+        a time-domain model (streams (B, K, N), None, None): one program
+        replay on the card."""
         dtype = getattr(self.model, "compute_dtype", None)
         return self.program(wav_batch, mode=(dtype,))
 
@@ -98,6 +124,10 @@ class Separator:
         # K3 takes a contiguous signal: a batch cut from the windows view
         # is copied once here, a program's static input not at all
         wav_batch = wav_batch.contiguous()
+        if self.time_domain:
+            streams = self.model(wav_batch)
+            return F.pad(streams, (0, wav_batch.shape[-1]
+                                   - streams.shape[-1])), None, None
         if self.merge:
             mag, feats, spec = self.features(wav_batch, return_spec=True)
         else:
@@ -123,9 +153,10 @@ class Separator:
 
     @torch.no_grad()
     def separate(self, wav: Union[np.ndarray, torch.Tensor]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """wav (T,) or (C, T) full recording -> (masks (B, T', F, S),
-        mags (B, T', F)) on ``device``, one row per sliding window. A
+        mags (B, T', F)) on ``device``, one row per sliding window; for a
+        time-domain model (streams (B, K, N), None). A
         ``separator`` span: its own time is the last batch's padding and
         the final ``cat``; counters ``windows``, ``batch_slots`` and, with
         ``merge``, ``merge_windows`` (the recording's windows, the
@@ -147,11 +178,12 @@ class Separator:
             return masks, mags
 
     def forward_windows(self, windows: torch.Tensor, batch_size: int
-                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                    Optional[torch.Tensor]]:
         """(n, [C,] win) windows -> (masks, mags, the merge's killed
-        windows as a 0-d tensor or None), in forwards of ``batch_size``
-        windows: full batches as cut, a partial last one zero-padded."""
+        windows as a 0-d tensor or None), or a time-domain model's
+        (streams, None, None), in forwards of ``batch_size`` windows: full
+        batches as cut, a partial last one zero-padded."""
         outs_m, outs_g, kills = [], [], []
         for i in range(0, windows.shape[0], batch_size):
             batch = windows[i : i + batch_size]
@@ -161,8 +193,10 @@ class Separator:
                     (batch_size - real,) + tuple(batch.shape[1:]))])
             masks, mag, kill = self.forward(batch)
             outs_m.append(masks[:real])
-            outs_g.append(mag[:real])
+            if mag is not None:
+                outs_g.append(mag[:real])
             if kill is not None:
                 kills.append(kill[:real].any(dim=-1).sum())
         kills = torch.stack(kills).sum() if kills else None
-        return torch.cat(outs_m), torch.cat(outs_g), kills
+        return (torch.cat(outs_m), torch.cat(outs_g) if outs_g else None,
+                kills)

@@ -25,7 +25,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from css_tpu_torch.device import resolve_device
-from css_tpu_torch.executor.separator import Separator
+from css_tpu_torch.executor.separator import Separator, require_masks
 from css_tpu_torch.executor.stitcher import Stitcher
 from css_tpu_torch.executor.windowing import EXTRA_SAMPLES, unfold
 
@@ -54,6 +54,7 @@ class ShardedSeparation:
                  frame_hop: int = 256, ipd_index: Optional[str] = None,
                  wta_floor: float = 1e-4, extra_samples: int = EXTRA_SAMPLES,
                  num_spk: int = 2, batch_size: Optional[int] = None):
+        require_masks(model, "sharded separation")
         self.devices = [_indexed(resolve_device(d)) for d in
                         (devices if devices is not None
                          else visible_devices())]

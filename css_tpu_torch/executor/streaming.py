@@ -34,7 +34,7 @@ import torch
 
 from css_tpu_torch.device import resolve_device
 from css_tpu_torch.executor.beamformer import Beamformer
-from css_tpu_torch.executor.separator import Separator
+from css_tpu_torch.executor.separator import Separator, require_masks
 from css_tpu_torch.utils.permutations import permutations_array
 
 
@@ -50,6 +50,7 @@ class StreamingCssPipeline:
 
     def __init__(self, model: torch.nn.Module, config: dict, sr: int = 16000,
                  device: Union[str, torch.device] = "cuda"):
+        require_masks(model, "window streaming")
         sep = config.get("separation", {})
         sti = config.get("stitching", {})
         bf = config.get("beamforming", {})

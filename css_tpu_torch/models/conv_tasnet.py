@@ -109,6 +109,9 @@ class Conv1DBlock(nn.Module):
 class ConvTasNet(nn.Module):
     """Waveform (B, N) -> separated waveforms (B, num_spk, N')."""
 
+    # the separator feeds it waveform windows, not K3 features
+    domain = "time"
+
     def __init__(self, num_spk: int = 2, num_noise: int = 1,
                  num_filters: int = 256, filter_length: int = 16,
                  bottleneck_channels: int = 128, conv_channels: int = 256,

@@ -26,7 +26,9 @@ The spans of the separation path (``css.`` prefix in a profile):
 ``upload``, ``separator`` (``executor/separator.py``) and its
 ``program.<name>`` calls (``utils/programs.py``; attribute ``kind``:
 ``eager``, ``capture``, ``replay`` or ``direct``), ``stitcher`` with
-``stitcher.scan`` (``executor/stitcher.py``), ``beamformer``
+``stitcher.scan`` (``executor/stitcher.py``; a time-domain model's
+``stitcher`` holds ``stitcher.wave``, the boundary costs and the routing,
+with ``stitcher.scan`` inside it), ``beamformer``
 (``executor/beamformer.py``; under Souden MVDR it holds
 ``beamformer.mvdr``, and that ``beamformer.stft``, ``beamformer.scm``,
 ``beamformer.solve`` and ``beamformer.apply``), ``to_host`` and
@@ -35,7 +37,9 @@ The spans of the separation path (``css.`` prefix in a profile):
 ``to_host`` (``executor/host_blocks.py``), ``to_host_reused``,
 ``to_host_pinned`` and ``to_host_pageable``; with the DOA merge
 ``merge_windows`` and ``merge_kills``; under Souden MVDR
-``mvdr_systems``.
+``mvdr_systems``; for a time-domain model ``stitch_swaps`` (the
+boundaries whose permutation is not the identity, counted from the
+scan's host copy).
 """
 
 from __future__ import annotations

@@ -37,7 +37,7 @@ TREE = {"upload": "session", "separator": "session",
 COUNTERS = ["sessions", "audio_samples", "bytes_up", "windows",
             "batch_slots", "bytes_down", "to_host_reused", "to_host_pinned",
             "to_host_pageable", "merge_windows", "merge_kills",
-            "mvdr_systems"]
+            "mvdr_systems", "stitch_swaps"]
 # configs/infer_7ch.yaml's settings (IPD, the DOA merge, Souden MVDR)
 CONFIG_7CH = {
     "sampling_rate": SR,
